@@ -1,0 +1,400 @@
+"""Proximal augmented-Lagrangian DDP solver, batched over scenarios.
+
+Port of `simple_mpc_tpu.solver.proxddp` (aligator::SolverProxDDP as the
+reference consumes it, mpc.cpp:43-53, 84-89, 212-217), structure-of-arrays
+path only.  Every tensor carries a leading scenario axis B: xs (B, T+1, nx),
+us (B, T, nu), lam_eq (B, T, n_eq), mu (B,).  Each scenario keeps its own
+AL penalty, BCL tolerances, line-search choice and divergence flag, exactly
+as the JAX package's `BatchedSolver` (a vmap of `run`) does.
+
+One iteration:
+  * K1/K2 `_linearize_traj_soa`: the stage bundle on N = B*T lanes and its
+    forward-mode tangents along the 18 dq, 18 dv and 24 du basis directions
+    (`torch.func.jvp` under `torch.func.vmap`), then Gauss-Newton products;
+  * K5 `_linearize_term`: terminal Jacobian with `torch.func.jacfwd`;
+  * K3 `kernels.riccati_backward`: the serial Riccati pass;
+  * K4 `kernels.linear_rollout` for every step size, then the Lie integrate,
+    the stage bundle on every candidate, the AL merit and an argmin per
+    scenario;
+  * the BCL multiplier / penalty schedule per scenario.
+
+Float32 on the card needs the dtype floors of the JAX package (mu >=
+sqrt(eps), reg >= 50 eps) and full-precision matmuls: TF32 products are the
+card's counterpart of the reduced-precision products that NaN'd the
+backward pass on the TPU, so every entry point turns them off.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch.func import jacfwd, jvp, vmap
+
+from .. import kernels
+from ..ocp.base import tree_map
+
+
+def full_precision_matmuls():
+    """No TF32 anywhere: float32 products run in full float32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverSettings:
+    """(MPCSettings solver block parity: TOL, mu_init, max_iters —
+    mpc.hpp:39-42).  Field meanings as in the JAX package."""
+
+    tol: float = 1e-4
+    mu_init: float = 1e-8
+    max_iters: int = 100
+    reg_init: float = 1e-9
+    alphas: tuple = (0.0, 1.0, 0.5, 0.25, 0.1, 0.03, 0.01)
+    # BCL outer-loop schedule: multipliers update only when the inner loop
+    # is stationary (|Qu| <= omega) and feasible (prim <= eta); stationary
+    # but infeasible stiffens mu by bcl_mu_factor.
+    bcl: bool = True
+    bcl_alpha: float = 0.1
+    bcl_mu_factor: float = 0.1
+    bcl_eta_shrink: float = 0.33
+    bcl_omega_init: float = 0.1
+    bcl_omega_shrink: float = 0.5
+    # control scaling: the step is taken in u_hat = u / u_scale ("auto" reads
+    # the OCP's u_scale); returned ks/Ks are in physical units
+    u_scale: Any = None
+
+
+class Results(NamedTuple):
+    xs: torch.Tensor  # (B, T+1, nx)
+    us: torch.Tensor  # (B, T, nu)
+    ks: torch.Tensor  # (B, T, nu) feedforward
+    Ks: torch.Tensor  # (B, T, nu, ndx) feedback gains
+    lam_eq: torch.Tensor  # (B, T, n_eq)
+    lam_in: torch.Tensor  # (B, T, n_in)
+    lam_term: torch.Tensor  # (B, n_term_eq)
+    prim_res: torch.Tensor  # (B,)
+    dual_res: torch.Tensor  # (B,)
+    merit: torch.Tensor  # (B,)
+    mu: torch.Tensor  # (B,) BCL-evolved AL penalty
+    diverged: torch.Tensor  # (B,) bool: NaN/Inf in the final iterate
+    alpha: torch.Tensor  # (B,) step size the last line search accepted
+
+
+def _lanes(x):
+    """(B, T, n...) -> (n..., B*T): scenarios and stages into the lanes."""
+    return x.reshape((-1,) + tuple(x.shape[2:])).movedim(0, -1)
+
+
+def _unlanes(X, nb):
+    """(n..., B*T) -> (B, T, n...)."""
+    Y = X.movedim(-1, 0)
+    return Y.reshape((nb, -1) + tuple(Y.shape[1:]))
+
+
+def _repeat(x, n):
+    """(B, ...) -> (B*n, ...), each scenario repeated n times in a row."""
+    return x.repeat_interleave(n, dim=0)
+
+
+class ProxDDPSolver:
+    """Solver bound to one OCP formulation (static structure)."""
+
+    def __init__(self, ocp, settings: SolverSettings = SolverSettings()):
+        self.ocp = ocp
+        self.settings = settings
+        self.space = ocp.space
+        if getattr(self.space, "tangent_split", None) is None or \
+                not hasattr(ocp, "stage_eval_soa"):
+            raise NotImplementedError(
+                "the port's solver runs the SoA path only (stage_eval_soa and "
+                "a q/v tangent split)")
+        u_sc = settings.u_scale
+        if isinstance(u_sc, str):
+            if u_sc != "auto":
+                raise ValueError(f"u_scale: expected 'auto' or array, got {u_sc!r}")
+            u_sc = getattr(ocp, "u_scale", None)
+        self._u_scale = None if u_sc is None else np.asarray(u_sc, np.float64)
+        if self._u_scale is not None and self._u_scale.shape != (ocp.nu,):
+            raise ValueError(
+                f"u_scale shape {self._u_scale.shape} != (nu,) = ({ocp.nu},)")
+
+    def _su(self, like):
+        if self._u_scale is None:
+            return None
+        return torch.as_tensor(self._u_scale, dtype=like.dtype, device=like.device)
+
+    # ------------------------------------------------------------------
+    # Fused trajectory evaluation
+    # ------------------------------------------------------------------
+    def _stage_bundle_soa(self, X, U, P, LE, LI, mu):
+        """(r_all, w_all, g, h, xnext), all (comps..., N); mu (N,) per lane."""
+        r, w, g, h, xnext = self.ocp.stage_eval_soa(X, U, P)
+        sh = h + mu * LI
+        act = (sh > 0).to(X.dtype)
+        r_all = torch.cat([r, g + mu * LE, torch.where(act > 0, sh, 0.0)], dim=0)
+        w_all = torch.cat([w[:, None].expand(r.shape), (1.0 / mu).expand(g.shape),
+                           act / mu], dim=0)
+        return r_all, w_all, g, h, xnext
+
+    def _eval_traj(self, P, xs, us, lam_eq, lam_in, mu):
+        """Stage bundles over the horizon of every scenario: AL stage costs
+        (B, T), raw constraints and multiple-shooting gaps (B, T, ...).
+        P: stage params in lane layout (..., B*T)."""
+        nb, T = us.shape[:2]
+        X, U, Xn = _lanes(xs[:, :-1]), _lanes(us), _lanes(xs[:, 1:])
+        mu_l = mu.repeat_interleave(T)
+        r_all, w_all, g, h, xnext = self._stage_bundle_soa(
+            X, U, P, _lanes(lam_eq), _lanes(lam_in), mu_l)
+        gap = self.space.difference_soa(Xn, xnext)
+        costs = 0.5 * torch.sum(w_all * r_all * r_all, dim=0)
+        return (costs.reshape(nb, T), _unlanes(g, nb), _unlanes(h, nb),
+                _unlanes(gap, nb))
+
+    def _term_al_cost(self, x, p, lam_term, mu):
+        r, w = self.ocp.term_residuals(x, p)
+        g = self.ocp.term_eq_constraints(x, p)
+        rg = g + mu[:, None] * lam_term
+        return (0.5 * torch.sum(w * r * r, dim=-1)
+                + 0.5 / mu * torch.sum(rg * rg, dim=-1))
+
+    def _merit_from(self, costs, gaps, x0_gap, term_cost, mu):
+        gap_pen = 0.5 / mu * torch.sum(gaps * gaps, dim=(1, 2))
+        return (torch.sum(costs, dim=1) + term_cost + gap_pen
+                + 0.5 / mu * torch.sum(x0_gap * x0_gap, dim=-1))
+
+    # ------------------------------------------------------------------
+    # Linearization (K1/K2 and K5)
+    # ------------------------------------------------------------------
+    def _linearize_traj_soa(self, P, xs, us, lam_eq, lam_in, mu):
+        """Whole-horizon linearization with scenarios and stages in the
+        lanes and the tangent basis on a vmapped leading axis.  Returns the
+        LQ data A, B, d, qx, qu, Qxx, Quu, Qux with leading (B, T)."""
+        space, ocp = self.space, self.ocp
+        ndx, nu = space.ndx, ocp.nu
+        split = space.tangent_split
+        nb, T = us.shape[:2]
+        N = nb * T
+        dtype, device = xs.dtype, xs.device
+        X, U, Xn = _lanes(xs[:, :-1]), _lanes(us), _lanes(xs[:, 1:])
+        LE, LI = _lanes(lam_eq), _lanes(lam_in)
+        mu_l = mu.repeat_interleave(T)
+        su = self._su(xs)
+        su = None if su is None else su[:, None]
+
+        def bundle(dq, dv, du):
+            Xp = space.integrate_parts_soa(X, dq, dv)
+            r_all, w_all, _, _, xnext = self._stage_bundle_soa(
+                Xp, U + (du if su is None else su * du), P, LE, LI, mu_l)
+            return r_all, space.difference_soa(Xn, xnext), w_all
+
+        zq = torch.zeros((split, N), dtype=dtype, device=device)
+        zv = torch.zeros((ndx - split, N), dtype=dtype, device=device)
+        zu = torch.zeros((nu, N), dtype=dtype, device=device)
+
+        def tangents(fn, z):
+            n = z.shape[0]
+            basis = torch.eye(n, dtype=dtype, device=device)[..., None].expand(n, n, N)
+            return vmap(lambda t: jvp(fn, (z,), (t,))[1])(basis)
+
+        r0, d0, w0 = bundle(zq, zv, zu)
+        Jr_q, Jd_q = tangents(lambda a: bundle(a, zv, zu)[:2], zq)
+        Jr_v, Jd_v = tangents(lambda a: bundle(zq, a, zu)[:2], zv)
+        Jr_u, Jd_u = tangents(lambda a: bundle(zq, zv, a)[:2], zu)
+        Jr = torch.cat([Jr_q, Jr_v, Jr_u], dim=0)  # (ndx+nu, nr, N)
+        Jd = torch.cat([Jd_q, Jd_v, Jd_u], dim=0)  # (ndx+nu, ndx, N)
+
+        # one sqrt(w)-scaled copy of Jr feeds both Gauss-Newton products
+        ws = torch.sqrt(w0)
+        Jw = Jr * ws[None]
+        wr = ws * r0
+        grad = torch.einsum("ent,nt->te", Jw, wr)  # (N, ndx+nu)
+        H = torch.einsum("ant,bnt->tab", Jw, Jw)  # (N, 60, 60)
+        A = Jd[:ndx].permute(2, 1, 0)  # (N, ndx, ndx)
+        B = Jd[ndx:].permute(2, 1, 0)  # (N, ndx, nu)
+
+        def bt(a):
+            return a.reshape((nb, T) + tuple(a.shape[1:])).contiguous()
+
+        return dict(A=bt(A), B=bt(B), d=bt(d0.T),
+                    qx=bt(grad[:, :ndx]), qu=bt(grad[:, ndx:]),
+                    Qxx=bt(H[:, :ndx, :ndx]), Quu=bt(H[:, ndx:, ndx:]),
+                    Qux=bt(H[:, ndx:, :ndx]))
+
+    def _linearize_term(self, x, p, lam_term, mu):
+        """Terminal Gauss-Newton expansion per scenario: Vx (B, ndx),
+        Vxx (B, ndx, ndx)."""
+        space, ocp = self.space, self.ocp
+
+        def resid(dx, xx, pp, lam, m):
+            xi = space.integrate(xx, dx)
+            r, _ = ocp.term_residuals(xi, pp)
+            g = ocp.term_eq_constraints(xi, pp)
+            return torch.cat([r, g + m * lam])
+
+        z = torch.zeros((x.shape[0], space.ndx), dtype=x.dtype, device=x.device)
+        r0 = vmap(resid)(z, x, p, lam_term, mu)
+        J = vmap(jacfwd(resid))(z, x, p, lam_term, mu)  # (B, nr, ndx)
+        _, w = ocp.term_residuals(x, p)
+        w0 = torch.cat([w.expand(x.shape[0], w.shape[0]),
+                        (1.0 / mu)[:, None].expand(x.shape[0], lam_term.shape[1])],
+                       dim=1)
+        Vx = torch.einsum("bri,br->bi", J, w0 * r0)
+        Vxx = torch.einsum("bri,brj->bij", J, w0[..., None] * J)
+        return Vx, Vxx
+
+    # ------------------------------------------------------------------
+    # Backward pass (K3) and candidates (K4)
+    # ------------------------------------------------------------------
+    def _backward(self, lin, Vx_T, Vxx_T, reg):
+        # with u scaling, Qu is the gradient wrt u_hat = u/s; the dual
+        # residual is reported in physical units (|dL/du| = |Qu|/s) or the
+        # BCL omega gate sees s-inflated values
+        su = self._su(Vx_T)
+        return kernels.riccati_backward(lin, Vx_T, Vxx_T, reg,
+                                        dual_scale=None if su is None else 1.0 / su)
+
+    def _candidates(self, xs, us, lin, ks, Ks, dx0, alphas):
+        """Linear rollout (aligator RolloutType::LINEAR) for every alpha:
+        xs (B, nA, T+1, nx), us (B, nA, T, nu)."""
+        dxs, dus = kernels.linear_rollout(lin["A"], lin["B"], lin["d"], ks, Ks,
+                                          dx0, alphas)
+        xs_new = self.space.integrate(xs[:, None].expand(dxs.shape[:3] + xs.shape[-1:]),
+                                      dxs)
+        su = self._su(us)
+        if su is not None:  # dus is in u_hat units; chain back
+            dus = dus * su
+        return xs_new, us[:, None] + dus
+
+    # ------------------------------------------------------------------
+    # Main loop
+    # ------------------------------------------------------------------
+    def run(self, problems, xs, us, lams: Optional[tuple] = None, mu=None,
+            max_iters: Optional[int] = None) -> Results:
+        """ProxDDP iterations from a warm start for a batch of problems
+        (every leaf of `problems` carries the leading scenario axis B).
+
+        (solver_->run(problem, xs_warm, us_warm), mpc.cpp:212)
+        """
+        full_precision_matmuls()
+        st = self.settings
+        ocp = self.ocp
+        nb, T = us.shape[:2]
+        dtype, device = xs.dtype, xs.device
+        if xs.shape != (nb, T + 1, self.space.nx):
+            raise ValueError(f"xs shape {tuple(xs.shape)} != (B, T+1, nx) = "
+                             f"({nb}, {T + 1}, {self.space.nx})")
+        eps = torch.finfo(dtype).eps
+
+        def full(v):
+            return torch.full((nb,), float(v), dtype=dtype, device=device)
+
+        if lams is None:
+            lam_eq = torch.zeros((nb, T, ocp.n_eq), dtype=dtype, device=device)
+            lam_in = torch.zeros((nb, T, ocp.n_in), dtype=dtype, device=device)
+            lam_term = torch.zeros((nb, ocp.n_term_eq), dtype=dtype, device=device)
+        else:
+            lam_eq, lam_in, lam_term = lams
+        # dtype-aware floors: f64 keeps the reference's 1e-8; f32 floors at
+        # sqrt(eps) ~ 3e-4 (1/mu enters squared in the AL Hessian)
+        mu_floor = math.sqrt(eps)
+        if mu is None:
+            mu = full(st.mu_init)
+        elif torch.is_tensor(mu):
+            mu = mu.to(dtype=dtype, device=device).expand(nb).clone()
+        else:
+            mu = full(mu)
+        mu = torch.clamp(mu, min=mu_floor)
+        reg = max(float(st.reg_init), 50.0 * eps)
+        n_iters = st.max_iters if max_iters is None else max_iters
+        alphas = torch.as_tensor(st.alphas, dtype=dtype, device=device)
+        na = alphas.shape[0]
+        tol = float(st.tol)
+
+        # stage params in lane layout, for the iterate and for the candidates
+        P = tree_map(_lanes, problems.stage_params)
+        Pc = tree_map(lambda a: _lanes(_repeat(a, na)), problems.stage_params)
+        tp_c = tree_map(lambda a: _repeat(a, na), problems.term_params)
+        x0_c = _repeat(problems.x0, na)
+        rows = torch.arange(nb, device=device)
+
+        eta = torch.clamp(mu ** st.bcl_alpha, min=tol)
+        omega = full(-1.0)  # set from the first dual residual
+        prim = dual_res = merit = ks = Ks = alpha = None
+        for _ in range(n_iters):
+            lin = self._linearize_traj_soa(P, xs, us, lam_eq, lam_in, mu)
+            Vx_T, Vxx_T = self._linearize_term(xs[:, -1], problems.term_params,
+                                               lam_term, mu)
+            ks, Ks, dual_res = self._backward(lin, Vx_T, Vxx_T, reg)
+            dx0 = self.space.difference(xs[:, 0], problems.x0)  # force_initial_condition
+
+            xs_c, us_c = self._candidates(xs, us, lin, ks, Ks, dx0, alphas)
+            xs_f = xs_c.reshape((nb * na,) + xs_c.shape[2:])
+            us_f = us_c.reshape((nb * na,) + us_c.shape[2:])
+            mu_c = _repeat(mu, na)
+            costs, g_c, h_c, gap_c = self._eval_traj(
+                Pc, xs_f, us_f, _repeat(lam_eq, na), _repeat(lam_in, na), mu_c)
+            term = self._term_al_cost(xs_f[:, -1], tp_c, _repeat(lam_term, na), mu_c)
+            x0_gap = self.space.difference(xs_f[:, 0], x0_c)
+            m = self._merit_from(costs, gap_c, x0_gap, term, mu_c).reshape(nb, na)
+            # NaN-poisoned candidates lose to every finite merit
+            m = torch.where(torch.isnan(m), math.inf, m)
+            best = torch.argmin(m, dim=1)
+            merit = m[rows, best]
+            alpha = alphas[best]
+
+            def pick(a):
+                return a.reshape((nb, na) + a.shape[1:])[rows, best]
+
+            xs, us = xs_c[rows, best], us_c[rows, best]
+            g_all, h_all, gaps = pick(g_c), pick(h_c), pick(gap_c)
+
+            g_term = ocp.term_eq_constraints(xs[:, -1], problems.term_params)
+            prim = torch.amax(torch.abs(gaps), dim=(1, 2))
+            if ocp.n_eq:
+                prim = torch.maximum(prim, torch.amax(torch.abs(g_all), dim=(1, 2)))
+            if ocp.n_in:
+                prim = torch.maximum(prim, torch.amax(torch.clamp(h_all, min=0.0),
+                                                      dim=(1, 2)))
+            if ocp.n_term_eq:
+                prim = torch.maximum(prim, torch.amax(torch.abs(g_term), dim=1))
+
+            # BCL outer loop (LANCELOT schedule), per scenario
+            if st.bcl:
+                omega = torch.where(omega < 0, torch.clamp(
+                    dual_res * st.bcl_omega_init, min=tol), omega)
+                dual_ok = dual_res <= omega
+                ok = dual_ok & (prim <= eta)
+                fail = dual_ok & (prim > eta)
+                mu_n = torch.where(
+                    fail, torch.clamp(mu * st.bcl_mu_factor, min=mu_floor), mu)
+                eta_n = torch.where(
+                    ok, torch.clamp(eta * st.bcl_eta_shrink, min=tol),
+                    torch.where(fail, torch.clamp(mu_n ** st.bcl_alpha, min=tol), eta))
+                omega_n = torch.where(
+                    ok, torch.clamp(omega * st.bcl_omega_shrink, min=tol),
+                    torch.where(fail, omega / st.bcl_mu_factor, omega))
+            else:
+                ok = torch.ones(nb, dtype=torch.bool, device=device)
+                mu_n, eta_n, omega_n = mu, eta, omega
+            okc = ok[:, None, None]
+            lam_eq = torch.where(okc, lam_eq + g_all / mu[:, None, None], lam_eq)
+            # projection keeps the inequality multipliers in the dual cone
+            lam_in = torch.where(
+                okc, torch.clamp(lam_in + h_all / mu[:, None, None], min=0.0), lam_in)
+            lam_term = torch.where(ok[:, None], lam_term + g_term / mu[:, None],
+                                   lam_term)
+            mu, eta, omega = mu_n, eta_n, omega_n
+
+        bad = ~(torch.isfinite(xs).all(dim=(1, 2)) & torch.isfinite(us).all(dim=(1, 2))
+                & torch.isfinite(merit))
+        su = self._su(xs)
+        if su is not None:  # gains back to physical u units
+            ks = ks * su
+            Ks = Ks * su[:, None]
+        return Results(xs=xs, us=us, ks=ks, Ks=Ks, lam_eq=lam_eq, lam_in=lam_in,
+                       lam_term=lam_term, prim_res=prim, dual_res=dual_res,
+                       merit=merit, mu=mu, diverged=bad, alpha=alpha)
