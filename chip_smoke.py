@@ -6,11 +6,14 @@
 Phases, each printing one line; any failure raises and exits non-zero:
   1. device  — requires a CUDA card; prints its name and power limit.
   2. build   — compiles the CUDA kernels (csrc/*.cu, nvcc, sm_90a).
-  3. kernels — K3 (Riccati backward) and K4 (linear rollout) against their
-               plain PyTorch twins on the card, at the main path's shapes
-               (Go2 kinodynamics T=100, B=128, from the port's own
-               linearization of a perturbed standing problem), f32 and f64;
-               times as CUDA-event medians.
+  3. kernels — every kernel against its plain PyTorch twin on the card, at
+               the main path's shapes (Go2 kinodynamics T=100, B=128, from
+               a perturbed standing problem), f32 and f64: K1+K2
+               stage_linearize, K5 term_linearize, K3 riccati_backward, K4
+               linear_rollout, K1 stage_eval on the candidates, and K9
+               tick_refs on 128 fused-tick carries with perturbed
+               measurements; times as CUDA-event medians (the slow twins
+               of K1+K2, K3 and K5 on 3 repetitions).
   4. batched — 30 warm-started one-iteration solves of B=128 Go2 T=100
                problems in f32 (the bench configuration); feasibility gate
                max prim_res < 5e-4.
@@ -19,10 +22,19 @@ Phases, each printing one line; any failure raises and exits non-zero:
   6. mpc     — the receding-horizon MPC (Go2 T=100 trot at 0.2 m/s), 30
                ticks fed back their own planned next state: finite plans, no
                divergence; per-tick wall time.
-The kernels' launch counters are zeroed before phase 4 and read after phase
-6: both kernels must have run on the main path.  The second-to-last lines
-are the kernel summary (JSON) and nvidia-smi's name/power limit; the last
-line is {"ok": true, "device": {...}}.
+  7. fused   — the fused tick (FusedMPC, the bench's configuration: trot
+               10/30/10/30 at 0.2 m/s, apex 0.15 m, mu_init 1e-6, f32):
+               step_batched at B=128 for 20 self-fed ticks (finite, no
+               divergence, max prim_res < 5e-3; ticks/s), one tick under
+               torch.cuda.set_sync_debug_mode("error") (no host sync), and
+               20 B=1 `step` ticks (p50/p99).
+Phases 4-7 drive the main path.  The kernels' launch counters are zeroed
+just before each of them and read just after (a `<phase>_launches` line):
+each must have launched every kernel it runs (phase 7 all six).  The
+kernel summary's `launches` is the sum over those four runs; the launches
+of phase 3 are not counted.  The second-to-last lines are the kernel
+summary (JSON) and nvidia-smi's name/power limit; the last line is
+{"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -38,6 +50,12 @@ T = 100
 B = 128
 ALPHAS = (0.0, 1.0, 0.5, 0.25, 0.1)
 REPS = 20
+SLOW_REPS = 3  # the torch.func twins of K1+K2 and K5 and the f64 twin of K3
+# the kernels each path of the main path must launch
+SOLVER_KERNELS = ("stage_linearize", "stage_eval", "riccati_backward", "linear_rollout",
+                  "term_linearize")
+PATH_KERNELS = dict(batched=SOLVER_KERNELS, fixture=SOLVER_KERNELS, mpc=SOLVER_KERNELS,
+                    fused=SOLVER_KERNELS + ("tick_refs",))
 
 
 def check(cond, msg):
@@ -98,16 +116,40 @@ def standing_case(device, dtype, seed):
     return ocp, tile_problem(ocp.problem, B), t(xs), t(us)
 
 
+def fused_engine(device, dtype=torch.float32):
+    """The bench's fused-tick configuration (bench.py:288-303) on the card:
+    Go2 T=100, trot 10/30/10/30 at 0.2 m/s, apex 0.15 m, one iteration a
+    tick with mu_init 1e-6, serial Riccati.  Returns (fused, carry)."""
+    from simple_mpc_tpu_torch.configs import make_go2_kinodynamics
+    from simple_mpc_tpu_torch.mpc import MPC, FusedMPC, MPCSettings
+    from simple_mpc_tpu_torch.parallel import BatchedSolver
+    from simple_mpc_tpu_torch.solver.proxddp import ProxDDPSolver, SolverSettings
+
+    ocp, mh, x0 = make_go2_kinodynamics(T, device=device, dtype=dtype)
+    mpc = MPC(MPCSettings(support_force=mh.mass * 9.81, max_iters=1, T_fly=30,
+                          T_contact=10, swing_apex=0.15, init_max_iters=2), ocp)
+    mpc.solver = BatchedSolver(ProxDDPSolver(ocp, SolverSettings(
+        tol=mpc.settings.TOL, mu_init=1e-6, max_iters=1)))
+    FL, FR, RL, RR = mh.feet_names
+    allc = {n: True for n in mh.feet_names}
+    mpc.generate_cycle_horizon([allc] * 10 + [{FL: True, FR: False, RL: False, RR: True}] * 30
+                               + [allc] * 10 + [{FL: False, FR: True, RL: True, RR: False}] * 30)
+    mpc.switch_to_walk(np.array([0.2, 0, 0, 0, 0, 0]))
+    fused = FusedMPC(mpc)
+    return fused, fused.make_carry(mpc)
+
+
 def phase_kernels(device):
-    """K3/K4 against their twins on a real linearization; f32 and f64."""
+    """Every kernel against its twin on the card; f32 and f64."""
     from simple_mpc_tpu_torch import kernels
     from simple_mpc_tpu_torch.ocp.base import tree_map
-    from simple_mpc_tpu_torch.solver.proxddp import (ProxDDPSolver, SolverSettings,
-                                                     _lanes)
+    from simple_mpc_tpu_torch.solver.proxddp import ProxDDPSolver, SolverSettings
 
     out = {}
-    for dtype, tol_k3, tol_k4 in ((torch.float32, 1e-4, 1e-5),
-                                  (torch.float64, 1e-10, 1e-10)):
+    fused, carry1 = fused_engine(device)
+    for dtype, tol_lin, tol_k3, tol_k4, tol_eval, tol_tick in (
+            (torch.float32, 1e-4, 1e-4, 1e-5, 1e-5, 1e-6),
+            (torch.float64, 1e-10, 1e-10, 1e-10, 1e-10, 1e-12)):
         t0 = time.perf_counter()
         ocp, probs, xs, us = standing_case(device, dtype, seed=3)
         solver = ProxDDPSolver(ocp, SolverSettings(mu_init=1e-6, alphas=ALPHAS))
@@ -116,46 +158,86 @@ def phase_kernels(device):
         lam_eq = torch.zeros((B, T, ocp.n_eq), dtype=dtype, device=device)
         lam_in = torch.zeros((B, T, ocp.n_in), dtype=dtype, device=device)
         lam_term = torch.zeros((B, ocp.n_term_eq), dtype=dtype, device=device)
-        P = tree_map(_lanes, probs.stage_params)
-        lin = solver._linearize_traj_soa(P, xs, us, lam_eq, lam_in, mu)
-        Vx, Vxx = solver._linearize_term(xs[:, -1], probs.term_params, lam_term, mu)
+        sp = tree_map(torch.Tensor.contiguous, probs.stage_params)
+        tp = tree_map(torch.Tensor.contiguous, probs.term_params)
+        xT = xs[:, -1]
         reg = max(solver.settings.reg_init, 50 * eps)
         dx0 = solver.space.difference(xs[:, 0], probs.x0)
         alphas = torch.as_tensor(ALPHAS, dtype=dtype, device=device)
+        errs, abs_err, times = {}, {}, {}
 
-        ks, Ks, dual = kernels.riccati_backward(lin, Vx, Vxx, reg)
-        ks0, Ks0, Qus0 = kernels.riccati_backward_plain(lin, Vx, Vxx, reg)
-        dual0 = Qus0.abs().amax(dim=(1, 2))
-        dxs, dus = kernels.linear_rollout(lin["A"], lin["B"], lin["d"], ks0, Ks0,
-                                          dx0, alphas)
-        dxs0, dus0 = kernels.linear_rollout_plain(lin["A"], lin["B"], lin["d"],
-                                                  ks0, Ks0, dx0, alphas)
-        torch.cuda.synchronize()
-        errs = dict(ks=rel_err(ks, ks0), Ks=rel_err(Ks, Ks0), dual=rel_err(dual, dual0),
-                    dxs=rel_err(dxs, dxs0), dus=rel_err(dus, dus0))
-        abs_k3 = max(float((ks - ks0).abs().max()), float((Ks - Ks0).abs().max()))
-        abs_k4 = max(float((dxs - dxs0).abs().max()), float((dus - dus0).abs().max()))
-        for k in ("ks", "Ks", "dual"):
-            check(errs[k] <= tol_k3, f"K3 {dtype} {k}: rel err {errs[k]:.3e} > {tol_k3}")
-        for k in ("dxs", "dus"):
-            check(errs[k] <= tol_k4, f"K4 {dtype} {k}: rel err {errs[k]:.3e} > {tol_k4}")
-        check(all(torch.isfinite(a).all() for a in (ks, Ks, dxs, dus)),
-              f"non-finite kernel output ({dtype})")
-        # the f64 twin of K3 takes seconds a call: 3 reps there, 20 in f32
-        reps = REPS if dtype == torch.float32 else 3
+        def compare(name, got, want, tol):
+            e = [rel_err(a, b) for a, b in zip(got, want)]
+            check(all(np.isfinite(e)) and max(e) <= tol,
+                  f"{name} {dtype}: rel err {max(e):.3e} > {tol}")
+            check(all(torch.isfinite(a).all() for a in got), f"{name} {dtype}: non-finite")
+            errs[name] = max(e)
+            abs_err[name] = max(float((a.double() - b.double()).abs().max())
+                                for a, b in zip(got, want))
+
+        # K1+K2 and K5
+        lin = kernels.stage_linearize(solver, sp, xs, us, lam_eq, lam_in, mu)
+        lin0 = kernels._linearize_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu)
+        compare("stage_linearize", [lin[k] for k in kernels.LIN_KEYS],
+                [lin0[k] for k in kernels.LIN_KEYS], tol_lin)
+        term = kernels.term_linearize(solver, xT, tp, lam_term, mu)
+        Vx, Vxx = kernels._linearize_term_plain(solver, xT, tp, lam_term, mu)
+        compare("term_linearize", term, (Vx, Vxx), tol_lin)
+        # K3 and K4 on the twins' linearization
+        ks, Ks, dual = kernels.riccati_backward(lin0, Vx, Vxx, reg)
+        ks0, Ks0, Qus0 = kernels.riccati_backward_plain(lin0, Vx, Vxx, reg)
+        compare("riccati_backward", (ks, Ks, dual),
+                (ks0, Ks0, Qus0.abs().amax(dim=(1, 2))), tol_k3)
+        roll_args = (lin0["A"], lin0["B"], lin0["d"], ks0, Ks0, dx0, alphas)
+        dxs, dus = kernels.linear_rollout(*roll_args)
+        compare("linear_rollout", (dxs, dus), kernels.linear_rollout_plain(*roll_args), tol_k4)
+        # K1 on the candidates of that step
+        xs_c, us_c = solver._candidates(xs, us, lin0, ks0, Ks0, dx0, alphas)
+        eval_args = (solver, sp, xs_c, us_c, lam_eq, lam_in, mu)
+        compare("stage_eval", kernels.stage_eval(*eval_args),
+                kernels._eval_traj_plain(*eval_args), tol_eval)
+        # K9 on B carries of the fused engine, perturbed measurements
+        cb = tree_map(lambda a: a.to(dtype) if a.is_floating_point() else a,
+                      fused.tile_carry(carry1, B))
+        rng = np.random.default_rng(7)
+        x_meas = cb.xs[:, 0] + torch.as_tensor(0.01 * rng.normal(size=(B, cb.xs.shape[-1])),
+                                               dtype=dtype, device=device)
+        x_meas[:, 3:7] /= x_meas[:, 3:7].norm(dim=-1, keepdim=True)
+        cb = cb._replace(velocity_base=cb.velocity_base + torch.as_tensor(
+            0.1 * rng.normal(size=(B, 6)), dtype=dtype, device=device))
+        got = kernels.tick_refs(fused, cb, x_meas)
+        want = kernels.tick_refs_plain(fused, cb, x_meas)
+        for k in ("walking", "takeoff", "land"):
+            check(torch.equal(getattr(got, k), getattr(want, k)),
+                  f"tick_refs {dtype}: {k} differs from the twin")
+        compare("tick_refs", got[3:], want[3:], tol_tick)
+
+        slow = SLOW_REPS
         times = dict(
-            k3_ms=cuda_ms(lambda: kernels.riccati_backward(lin, Vx, Vxx, reg), REPS),
-            k3_plain_ms=cuda_ms(
-                lambda: kernels.riccati_backward_plain(lin, Vx, Vxx, reg), reps),
-            k4_ms=cuda_ms(lambda: kernels.linear_rollout(
-                lin["A"], lin["B"], lin["d"], ks0, Ks0, dx0, alphas), REPS),
-            k4_plain_ms=cuda_ms(lambda: kernels.linear_rollout_plain(
-                lin["A"], lin["B"], lin["d"], ks0, Ks0, dx0, alphas), REPS),
+            stage_linearize=(
+                cuda_ms(lambda: kernels.stage_linearize(solver, sp, xs, us, lam_eq,
+                                                        lam_in, mu), REPS),
+                cuda_ms(lambda: kernels._linearize_traj_plain(solver, sp, xs, us, lam_eq,
+                                                              lam_in, mu), slow)),
+            term_linearize=(
+                cuda_ms(lambda: kernels.term_linearize(solver, xT, tp, lam_term, mu), REPS),
+                cuda_ms(lambda: kernels._linearize_term_plain(solver, xT, tp, lam_term,
+                                                              mu), slow)),
+            riccati_backward=(
+                cuda_ms(lambda: kernels.riccati_backward(lin0, Vx, Vxx, reg), REPS),
+                cuda_ms(lambda: kernels.riccati_backward_plain(lin0, Vx, Vxx, reg),
+                        REPS if dtype == torch.float32 else slow)),
+            linear_rollout=(cuda_ms(lambda: kernels.linear_rollout(*roll_args), REPS),
+                            cuda_ms(lambda: kernels.linear_rollout_plain(*roll_args), REPS)),
+            stage_eval=(cuda_ms(lambda: kernels.stage_eval(*eval_args), REPS),
+                        cuda_ms(lambda: kernels._eval_traj_plain(*eval_args), REPS)),
+            tick_refs=(cuda_ms(lambda: kernels.tick_refs(fused, cb, x_meas), REPS),
+                       cuda_ms(lambda: kernels.tick_refs_plain(fused, cb, x_meas), REPS)),
         )
         name = str(dtype).replace("torch.", "")
-        out[name] = dict(errs=errs, abs_k3=abs_k3, abs_k4=abs_k4, **times)
-        phase(f"kernels_{name}", t0, B=B, T=T, rel_err=errs, abs_err_k3=abs_k3,
-              abs_err_k4=abs_k4, **times)
+        out[name] = dict(errs=errs, abs_err=abs_err, times=times)
+        phase(f"kernels_{name}", t0, B=B, T=T, rel_err=errs, max_abs_err=abs_err,
+              ms_kernel_vs_plain=times)
     return out
 
 
@@ -265,6 +347,77 @@ def phase_mpc(device):
           land=mpc.get_foot_land_cycle("FL_foot"))
 
 
+def phase_fused(device):
+    """The fused tick: B=128 self-fed step_batched ticks, one tick in
+    sync-debug "error" mode, then B=1 `step` latency."""
+    t0 = time.perf_counter()
+    fused, carry = fused_engine(device)
+    setup = time.perf_counter() - t0
+    cb = fused.tile_carry(carry, B)
+    for _ in range(2):  # warm-up: first calls allocate and load the library
+        cb, res = fused.step_batched(cb, cb.xs[:, 1])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cb, res = fused.step_batched(cb, cb.xs[:, 1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    ticks = 20
+    prim = torch.zeros((), dtype=res.prim_res.dtype, device=device)
+    bad = torch.zeros((), dtype=torch.bool, device=device)
+    t1 = time.perf_counter()
+    for _ in range(ticks):
+        cb, res = fused.step_batched(cb, cb.xs[:, 1])
+        prim = torch.maximum(prim, res.prim_res.max())
+        bad = bad | res.diverged.any() | ~torch.isfinite(res.Ks).all()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    check(not bool(bad), "fused B=128: a scenario diverged or produced a non-finite plan")
+    check(bool(torch.isfinite(cb.xs).all() and torch.isfinite(cb.us).all()),
+          "fused B=128: non-finite carry")
+    max_prim = float(prim)
+    check(max_prim < 5e-3, f"fused B=128 lost feasibility: max prim {max_prim:.3e}")
+
+    lat = []
+    c1 = carry
+    for _ in range(2):
+        c1, r1 = fused.step(c1, c1.xs[1])
+    for _ in range(ticks):
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        c1, r1 = fused.step(c1, c1.xs[1])
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t2)
+        check(not bool(r1.diverged) and bool(torch.isfinite(r1.us).all()),
+              "fused B=1: non-finite plan")
+    lat_ms = 1e3 * np.asarray(lat)
+    phase("fused", t0, T=T, B=B, setup_s=setup, ticks=ticks,
+          ticks_per_s=B * ticks / wall, ms_per_batched_tick=1e3 * wall / ticks,
+          max_prim=max_prim, sync_debug_tick="ok",
+          step_p50_ms=float(np.percentile(lat_ms, 50)),
+          step_p99_ms=float(np.percentile(lat_ms, 99)), step_prim=float(r1.prim_res))
+
+
+def drive_main_path(device):
+    """Phases 4-7, each with the launch counters zeroed just before it and
+    read just after; returns the launches of each kernel summed over them."""
+    from simple_mpc_tpu_torch import kernels
+
+    launches = dict.fromkeys((k.__name__ for k in kernels.KERNELS), 0)
+    for path, run in (("batched", phase_batched), ("fixture", phase_fixture),
+                      ("mpc", phase_mpc), ("fused", phase_fused)):
+        kernels.reset_launches()
+        run(device)
+        counts = {k.__name__: k.launches for k in kernels.KERNELS}
+        for name in PATH_KERNELS[path]:
+            check(counts[name] > 0, f"the {path} path never launched {name}")
+        print(json.dumps({"phase": f"{path}_launches", "launches": counts}), flush=True)
+        for name, n in counts.items():
+            launches[name] += n
+    return launches
+
+
 def main():
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -289,28 +442,23 @@ def main():
         info["path"], ROOT), ptxas=ptxas)
 
     kres = phase_kernels(device)
+    launches = drive_main_path(device)
 
-    kernels.riccati_backward.launches = 0
-    kernels.linear_rollout.launches = 0
-    phase_batched(device)
-    phase_fixture(device)
-    phase_mpc(device)
-    n3 = kernels.riccati_backward.launches
-    n4 = kernels.linear_rollout.launches
-    check(n3 > 0, "the main path never launched the Riccati kernel")
-    check(n4 > 0, "the main path never launched the rollout kernel")
-
+    replaces = dict(
+        stage_linearize=("linearize.cu", "simple_mpc_tpu/solver/proxddp.py:271"),
+        stage_eval=("linearize.cu", "simple_mpc_tpu/solver/proxddp.py:183"),
+        riccati_backward=("riccati.cu", "simple_mpc_tpu/solver/proxddp.py:391"),
+        linear_rollout=("rollout.cu", "simple_mpc_tpu/solver/proxddp.py:458"),
+        term_linearize=("linearize.cu", "simple_mpc_tpu/solver/proxddp.py:352"),
+        tick_refs=("tick.cu", "simple_mpc_tpu/mpc/fused.py:175"),
+    )
     f32 = kres["float32"]
     print(json.dumps({"kernels": [
-        {"name": "riccati_backward", "route": "cuda",
-         "source": "simple_mpc_tpu_torch/csrc/riccati.cu",
-         "replaces": "simple_mpc_tpu/solver/proxddp.py:391", "launches": n3,
-         "max_abs_err": f32["abs_k3"], "ms": f32["k3_ms"], "plain_ms": f32["k3_plain_ms"]},
-        {"name": "linear_rollout", "route": "cuda",
-         "source": "simple_mpc_tpu_torch/csrc/rollout.cu",
-         "replaces": "simple_mpc_tpu/solver/proxddp.py:458", "launches": n4,
-         "max_abs_err": f32["abs_k4"], "ms": f32["k4_ms"], "plain_ms": f32["k4_plain_ms"]},
-    ]}), flush=True)
+        {"name": name, "route": "cuda", "source": f"simple_mpc_tpu_torch/csrc/{src}",
+         "replaces": rep, "launches": launches[name],
+         "max_abs_err": f32["abs_err"][name], "ms": f32["times"][name][0],
+         "plain_ms": f32["times"][name][1]}
+        for name, (src, rep) in replaces.items()]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -1,9 +1,10 @@
-"""Carry problems and solver iterates between numpy and the port.
+"""Carry problems, solver iterates and fused-tick carries between numpy and
+the port.
 
-The JAX package's `Problem` leaves and `Results`, taken as numpy arrays,
-become the port's tensors and back.  This is how the same problem and the
-same warm start are fed to both packages (the port itself never imports
-the JAX package).
+The JAX package's `Problem` leaves, `Results` and `MPCCarry`, taken as
+numpy arrays, become the port's tensors and back.  This is how the same
+problem and the same warm start are fed to both packages (the port itself
+never imports the JAX package).
 """
 from __future__ import annotations
 
@@ -20,19 +21,24 @@ def _tensor(a, device, dtype):
     return torch.as_tensor(a, device=device)
 
 
+def _field(src, f):
+    return src[f] if isinstance(src, dict) else getattr(src, f)
+
+
+def _params(cls, src, device, dtype):
+    """A param NamedTuple `cls` from any object or dict with its fields."""
+    return cls._make(_tensor(_field(src, f), device, dtype) for f in cls._fields)
+
+
 def problem_from_numpy(ocp, stage_params, term_params, x0, device,
                        dtype=torch.float64) -> Problem:
     """The port's Problem for `ocp` from the JAX package's stage and
     terminal parameter NamedTuples (any objects with the same field names
     whose leaves convert with numpy.asarray) and x0.  Leading batch axes are
     kept as they are."""
-    def conv(cls, src):
-        return cls._make(_tensor(getattr(src, f), device, dtype)
-                         for f in cls._fields)
-
     return Problem(x0=_tensor(x0, device, dtype),
-                   stage_params=conv(ocp.stage_params_type, stage_params),
-                   term_params=conv(ocp.term_params_type, term_params))
+                   stage_params=_params(ocp.stage_params_type, stage_params, device, dtype),
+                   term_params=_params(ocp.term_params_type, term_params, device, dtype))
 
 
 def lams_from_numpy(lam_eq, lam_in, lam_term, device, dtype=torch.float64):
@@ -44,3 +50,34 @@ def results_to_numpy(res) -> dict:
     """Every field of a port `Results` as a numpy array (host copy)."""
     return {k: np.asarray(v.detach().cpu().numpy()) if torch.is_tensor(v)
             else np.asarray(v) for k, v in res._asdict().items()}
+
+
+def carry_from_numpy(ocp, carry, device, dtype=torch.float64):
+    """The port's `MPCCarry` from a carry with the same field names (the JAX
+    package's `MPCCarry`, or `carry_to_numpy`'s dict): floating leaves in
+    `dtype`, the int32 queues and state machine kept as they are.  Leading
+    batch axes are kept."""
+    from .mpc.fused import MPCCarry
+
+    leaves = {}
+    for f in MPCCarry._fields:
+        v = _field(carry, f)
+        if f in ("stage_params", "cycle_params", "standing_params"):
+            leaves[f] = _params(ocp.stage_params_type, v, device, dtype)
+        elif f == "term_params":
+            leaves[f] = _params(ocp.term_params_type, v, device, dtype)
+        else:
+            leaves[f] = _tensor(v, device, dtype)
+    return MPCCarry(**leaves)
+
+
+def carry_to_numpy(carry) -> dict:
+    """Every leaf of a port `MPCCarry` as numpy (param tuples as dicts)."""
+    def host(a):
+        return np.asarray(a.detach().cpu().numpy())
+
+    out = {}
+    for f, v in carry._asdict().items():
+        out[f] = ({k: host(a) for k, a in v._asdict().items()}
+                  if hasattr(v, "_fields") else host(v))
+    return out

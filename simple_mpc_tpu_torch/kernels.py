@@ -1,19 +1,31 @@
-"""Hand-written CUDA kernels of the solver's path, with their plain twins.
+"""Hand-written CUDA kernels of the solver's and the fused tick's path, with
+their plain twins.
 
-K3 `riccati_backward` (csrc/riccati.cu) replaces
-`simple_mpc_tpu/solver/proxddp.py` `ProxDDPSolver._backward` (the serial
-`lax.scan` step with `ops/soa_dyn.py` chol_unrolled/chol_solve_unrolled).
+K1+K2 `stage_linearize` (csrc/linearize.cu) replaces
+`simple_mpc_tpu/solver/proxddp.py` `ProxDDPSolver._linearize_traj_soa` with
+`_stage_bundle_soa` and `ocp/kinodynamics.py` `stage_eval_soa`.
+K1 `stage_eval` (csrc/linearize.cu) replaces the candidate evaluation of
+`ProxDDPSolver._eval_traj`.
+K3 `riccati_backward` (csrc/riccati.cu) replaces `ProxDDPSolver._backward`
+(the serial `lax.scan` step with `ops/soa_dyn.py`
+chol_unrolled/chol_solve_unrolled).
 K4 `linear_rollout` (csrc/rollout.cu) replaces `ProxDDPSolver._candidate`'s
-rollout scan.  Each source file states what bounds the kernel on the card
-and what its design does about it.
+rollout scan.
+K5 `term_linearize` (csrc/linearize.cu) replaces
+`ProxDDPSolver._linearize_term`.
+K9 `tick_refs` (csrc/tick.cu) replaces the bookkeeping of
+`simple_mpc_tpu/mpc/fused.py` `FusedMPC._step` before the solve.
+Each source file states what bounds the kernel on the card and what its
+design does about it; csrc/stage.cuh holds the rigid-body algebra the
+K1/K2/K5/K9 kernels share.
 
 Dispatch: a tensor on the CPU goes to the plain PyTorch twin; a CUDA tensor
 launches the kernel or raises.  Each wrapper counts its kernel launches in
-a plain int attribute (`riccati_backward.launches`,
-`linear_rollout.launches`).
+a plain int attribute (`stage_linearize.launches`, ...).
 
-The kernels are compiled at first use with `nvcc` for sm_90a into a shared
-library with a plain C interface under `_build/`, and bound with ctypes.
+The kernels are compiled at first use with `nvcc` for sm_90a, one process
+per source, all started together, and linked into one shared library with
+a plain C interface under `_build/`, bound with ctypes.
 """
 from __future__ import annotations
 
@@ -24,17 +36,26 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
+import numpy as np
 import torch
+from torch.func import jacfwd, jvp, vmap
 
+from .models.model import FREE
+from .ocp.base import tree_map
+from .ocp.cones import FRICTION_EPS
+from .ops import soa
+from .ops import world as _world
 from .ops.soa_dyn import chol_solve_unrolled, chol_unrolled
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("riccati.cu", "rollout.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("riccati.cu", "rollout.cu", "linearize.cu", "tick.cu")
+HEADERS = ("stage.cuh",)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 
@@ -50,27 +71,47 @@ def _nvcc() -> str:
 
 
 def build() -> dict:
-    """Compile csrc/*.cu into _build/libsmpc_kernels_<hash>.so unless that
-    library exists.  Returns {"path", "seconds", "log"} (log: nvcc's
-    register/shared-memory report; empty when the library was cached)."""
+    """Compile csrc/*.cu (one nvcc per source, in parallel) and link them
+    into _build/libsmpc_kernels_<hash>.so unless that library exists.
+    Returns {"path", "seconds", "log"} (log: nvcc's register/shared-memory
+    report; empty when the library was cached)."""
     srcs = [CSRC / s for s in SOURCES]
     h = hashlib.sha256()
-    for s in srcs:
+    for s in srcs + [CSRC / s for s in HEADERS]:
         h.update(s.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"libsmpc_kernels_{h.hexdigest()[:16]}.so"
+    tag = h.hexdigest()[:16]
+    out = BUILD_DIR / f"libsmpc_kernels_{tag}.so"
     if out.exists():
         return {"path": str(out), "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
+    objs, procs = [], []
+    for s in srcs:
+        obj = BUILD_DIR / f"{s.stem}_{tag}.{os.getpid()}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = [], []
+    for s, p in zip(srcs, procs):
+        log = p.communicate()[0]
+        logs.append(log)
+        if p.returncode != 0:
+            failed.append(f"{s.name} ({p.returncode}):\n{log}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    r = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                       capture_output=True, text=True)
+    for o in objs:
+        o.unlink(missing_ok=True)
     if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
+        raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
     os.replace(tmp, out)
-    return {"path": str(out), "seconds": secs, "log": r.stdout + r.stderr}
+    return {"path": str(out), "seconds": time.perf_counter() - t0,
+            "log": "".join(logs) + r.stdout + r.stderr}
 
 
 def _library() -> ctypes.CDLL:
@@ -78,13 +119,23 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build()["path"])
         P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        for dt in ("f32", "f64"):
-            fn = getattr(lib, f"smpc_riccati_backward_{dt}")
-            fn.argtypes = [P] * 10 + [D, D, I, I, I, I] + [P] * 4
-            fn.restype = I
-            fn = getattr(lib, f"smpc_linear_rollout_{dt}")
-            fn.argtypes = [P] * 7 + [I] * 5 + [P] * 3
-            fn.restype = I
+        signatures = dict(
+            riccati_backward=[P] * 10 + [D, D, I, I, I, I] + [P] * 4,
+            linear_rollout=[P] * 7 + [I] * 5 + [P] * 3,
+            stage_linearize=[P] * 13 + [I] * 2 + [P] * 9,
+            stage_eval=[P] * 12 + [I] * 3 + [P] * 5,
+            term_linearize=[P] * 7 + [I] + [P] * 3,
+            tick_refs=[P] * 12 + [I] * 6 + [D, D] + [P] * 8,
+        )
+        for name, args in signatures.items():
+            for dt in ("f32", "f64"):
+                fn = getattr(lib, f"smpc_{name}_{dt}")
+                fn.argtypes = args
+                fn.restype = I
+        lib.smpc_dims_ints.restype = I
+        if lib.smpc_dims_ints() != _DIMS_INTS:
+            raise RuntimeError(f"stage.cuh Dims holds {lib.smpc_dims_ints()} ints, "
+                               f"kernels.py packs {_DIMS_INTS}")
         _lib = lib
     return _lib
 
@@ -97,11 +148,14 @@ def _suffix(dtype) -> str:
     raise TypeError(f"CUDA kernels take float32 or float64, got {dtype}")
 
 
-def _check(tensors: dict, shapes: dict, dtype, device):
+def _check(tensors: dict, shapes: dict, dtype, device, ints=()):
+    """Contiguous copies of `tensors` after checking device, shape and dtype
+    (`dtype`, or int32 for the names in `ints`)."""
     out = {}
     for k, t in tensors.items():
-        if t.device != device or t.dtype != dtype:
-            raise ValueError(f"{k}: expected {dtype} on {device}, got {t.dtype} on {t.device}")
+        want = torch.int32 if k in ints else dtype
+        if t.device != device or t.dtype != want:
+            raise ValueError(f"{k}: expected {want} on {device}, got {t.dtype} on {t.device}")
         if tuple(t.shape) != shapes[k]:
             raise ValueError(f"{k}: expected shape {shapes[k]}, got {tuple(t.shape)}")
         out[k] = t.contiguous()
@@ -111,6 +165,26 @@ def _check(tensors: dict, shapes: dict, dtype, device):
 def _raise_on(err: int, what: str):
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} ({torch.cuda.get_device_name()})")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _lanes(x):
+    """(B, T, n...) -> (n..., B*T): scenarios and stages into the lanes."""
+    return x.reshape((-1,) + tuple(x.shape[2:])).movedim(0, -1)
+
+
+def _unlanes(X, nb):
+    """(n..., B*T) -> (B, T, n...)."""
+    Y = X.movedim(-1, 0)
+    return Y.reshape((nb, -1) + tuple(Y.shape[1:]))
+
+
+def _repeat(x, n):
+    """(B, ...) -> (B*n, ...), each scenario repeated n times in a row."""
+    return x.repeat_interleave(n, dim=0)
 
 
 # ---------------------------------------------------------------------------
@@ -267,3 +341,483 @@ def linear_rollout(A, B, d, ks, Ks, dx0, alphas):
 
 
 linear_rollout.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Model and OCP constants of the stage kernels (csrc/stage.cuh `Dims`)
+# ---------------------------------------------------------------------------
+
+MAX_JOINTS = 16  # stage.cuh kMaxJ
+MAX_FEET = 8  # stage.cuh kMaxK
+LIN_THREADS = 64  # linearize.cu kLinThreads: one thread a tangent direction
+_DIMS_FIELDS = (
+    ("nj", 1), ("nq", 1), ("nv", 1), ("nu", 1), ("nk", 1), ("fs", 1),
+    ("n_cost", 1), ("n_eq", 1), ("n_in", 1), ("n_term_cost", 1), ("n_term_eq", 1),
+    ("kin_limits", 1), ("force_cone", 1), ("land_cstr", 1),
+    ("parent", MAX_JOINTS), ("qidx", MAX_JOINTS), ("vidx", MAX_JOINTS),
+    ("frame_parent", 2 * MAX_FEET + 1),
+    ("o_jR", 1), ("o_jp", 1), ("o_axis", 1), ("o_prism", 1), ("o_mass", 1),
+    ("o_com", 1), ("o_Iloc", 1), ("o_fR", 1), ("o_fp", 1), ("o_w", 1),
+    ("o_wterm", 1), ("o_g", 1), ("o_qmin", 1), ("o_qmax", 1), ("o_cone", 1),
+    ("o_scalars", 1),
+)
+_DIMS_INTS = sum(n for _, n in _DIMS_FIELDS)
+_consts_cache: dict = {}
+
+
+def _np64(t) -> np.ndarray:
+    return t.detach().to(device="cpu", dtype=torch.float64).numpy()
+
+
+def _require_stage_layout(ocp):
+    """The kernels' model: a free-flyer root, 1-dof joints in tree order
+    with q/v indices in joint order, point feet."""
+    m = ocp.model
+    nj = m.njoints
+    ok = (m.joint_types[0] == FREE and all(t != FREE for t in m.joint_types[1:])
+          and all(m.parents[j] < j for j in range(1, nj))
+          and all(m.idx_q[j] == 6 + j and m.idx_v[j] == 5 + j for j in range(1, nj)))
+    if not ok:
+        raise NotImplementedError("the stage kernels take a free-flyer root followed by "
+                                  "1-dof joints in tree order")
+    if nj > MAX_JOINTS or ocp.nk > MAX_FEET:
+        raise NotImplementedError(f"the stage kernels take at most {MAX_JOINTS} joints "
+                                  f"and {MAX_FEET} feet")
+    if ocp.fs != 3:
+        raise NotImplementedError("the stage kernels take point feet (force_size 3); "
+                                  "6D contacts are not ported")
+    if 2 * ocp.nv + ocp.nu > LIN_THREADS:
+        raise NotImplementedError(f"stage_linearize takes at most {LIN_THREADS} tangent "
+                                  f"directions (ndx + nu), got {2 * ocp.nv + ocp.nu}")
+
+
+def _stage_consts(ocp, dtype, device):
+    """(packed constants on `device` in `dtype`, Dims as a ctypes int array),
+    built once per (OCP, topology tables, terminal rows, dtype, device)."""
+    tab = _world.tables(ocp.model)
+    key = (id(ocp), id(tab), ocp.n_term_eq, dtype, device)
+    hit = _consts_cache.get(key)
+    if hit is not None and hit[0] is ocp and hit[1] is tab:
+        return hit[2], hit[3]
+    _require_stage_layout(ocp)
+    m, mh, s = ocp.model, ocp.model_handler, ocp.settings
+    nj, nk, nv = m.njoints, ocp.nk, ocp.nv
+    c = ocp._const(torch.empty(0, dtype=torch.float64))
+    axes = np.zeros((nj, 3))
+    prism = np.zeros(nj)
+    axes[tab.one_dof] = tab.axes
+    prism[tab.one_dof] = tab.is_prismatic
+    sel = list(ocp.feet_fids) + list(mh.feet_ref_frame_ids) + [mh.base_frame_id]
+    cone = (_np64(c["cone"]) if s.force_cone else np.zeros(0))
+    qmin = _np64(c["qmin"])[:, 0] if s.kinematics_limits else np.zeros(0)
+    qmax = _np64(c["qmax"])[:, 0] if s.kinematics_limits else np.zeros(0)
+    blocks = dict(
+        o_jR=tab.jR, o_jp=tab.jp, o_axis=axes, o_prism=prism, o_mass=tab.masses,
+        o_com=tab.coms, o_Iloc=tab.I_loc, o_fR=tab.fR[sel], o_fp=tab.fp[sel],
+        o_w=_np64(c["w"]), o_wterm=_np64(c["w_term"]), o_g=_np64(c["g"]),
+        o_qmin=qmin, o_qmax=qmax, o_cone=cone,
+        o_scalars=np.array([tab.total_mass, ocp.mass, s.timestep, FRICTION_EPS]))
+    dims = dict(
+        nj=nj, nq=ocp.nq, nv=nv, nu=ocp.nu, nk=nk, fs=ocp.fs,
+        n_cost=blocks["o_w"].shape[0], n_eq=ocp.n_eq, n_in=ocp.n_in,
+        n_term_cost=blocks["o_wterm"].shape[0], n_term_eq=ocp.n_term_eq,
+        kin_limits=int(s.kinematics_limits), force_cone=int(s.force_cone),
+        land_cstr=int(s.land_cstr),
+        parent=list(m.parents), qidx=list(m.idx_q), vidx=list(m.idx_v),
+        frame_parent=[int(tab.fparent[f]) for f in sel])
+    flat, off = [], 0
+    for name, arr in blocks.items():
+        a = np.asarray(arr, np.float64).reshape(-1)
+        dims[name] = off
+        flat.append(a)
+        off += a.shape[0]
+    ints = []
+    for name, n in _DIMS_FIELDS:
+        v = np.atleast_1d(np.asarray(dims[name], np.int64))
+        ints.extend(v.tolist() + [0] * (n - v.shape[0]))
+    dims_c = (ctypes.c_int * _DIMS_INTS)(*ints)
+    buf = torch.as_tensor(np.concatenate(flat), dtype=dtype, device=device)
+    _consts_cache[key] = (ocp, tab, buf, dims_c)
+    return buf, dims_c
+
+
+def _stage_params(sp, nb, T, nk, nx, nu, dtype, device):
+    shapes = dict(contact_active=(nb, T, nk), foot_ref_p=(nb, T, nk, 3),
+                  x_ref=(nb, T, nx), u_ref=(nb, T, nu), land=(nb, T, nk))
+    t = _check({k: getattr(sp, k) for k in shapes}, shapes, dtype, device)
+    return [t[k].data_ptr() for k in shapes]
+
+
+# ---------------------------------------------------------------------------
+# K1 + K2: stage linearization
+# ---------------------------------------------------------------------------
+
+
+def _linearize_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu):
+    """Plain PyTorch twin of K1+K2: the stage bundle on N = B*T lanes and
+    its forward-mode tangents along the 18 dq, 18 dv and 24 du basis
+    directions (`torch.func.jvp` under `torch.func.vmap`), then the
+    Gauss-Newton products.  sp: stage params with leading (B, T).  Returns
+    the LQ data A, B, d, qx, qu, Qxx, Quu, Qux with leading (B, T)."""
+    space, ocp = solver.space, solver.ocp
+    ndx, nu = space.ndx, ocp.nu
+    split = space.tangent_split
+    nb, T = us.shape[:2]
+    N = nb * T
+    dtype, device = xs.dtype, xs.device
+    P = tree_map(_lanes, sp)
+    X, U, Xn = _lanes(xs[:, :-1]), _lanes(us), _lanes(xs[:, 1:])
+    LE, LI = _lanes(lam_eq), _lanes(lam_in)
+    mu_l = mu.repeat_interleave(T)
+    su = solver._su(xs)
+    su = None if su is None else su[:, None]
+
+    def bundle(dq, dv, du):
+        Xp = space.integrate_parts_soa(X, dq, dv)
+        r_all, w_all, _, _, xnext = solver._stage_bundle_soa(
+            Xp, U + (du if su is None else su * du), P, LE, LI, mu_l)
+        return r_all, space.difference_soa(Xn, xnext), w_all
+
+    zq = torch.zeros((split, N), dtype=dtype, device=device)
+    zv = torch.zeros((ndx - split, N), dtype=dtype, device=device)
+    zu = torch.zeros((nu, N), dtype=dtype, device=device)
+
+    def tangents(fn, z):
+        n = z.shape[0]
+        basis = torch.eye(n, dtype=dtype, device=device)[..., None].expand(n, n, N)
+        return vmap(lambda t: jvp(fn, (z,), (t,))[1])(basis)
+
+    r0, d0, w0 = bundle(zq, zv, zu)
+    Jr_q, Jd_q = tangents(lambda a: bundle(a, zv, zu)[:2], zq)
+    Jr_v, Jd_v = tangents(lambda a: bundle(zq, a, zu)[:2], zv)
+    Jr_u, Jd_u = tangents(lambda a: bundle(zq, zv, a)[:2], zu)
+    Jr = torch.cat([Jr_q, Jr_v, Jr_u], dim=0)  # (ndx+nu, nr, N)
+    Jd = torch.cat([Jd_q, Jd_v, Jd_u], dim=0)  # (ndx+nu, ndx, N)
+
+    # one sqrt(w)-scaled copy of Jr feeds both Gauss-Newton products
+    ws = torch.sqrt(w0)
+    Jw = Jr * ws[None]
+    wr = ws * r0
+    grad = torch.einsum("ent,nt->te", Jw, wr)  # (N, ndx+nu)
+    H = torch.einsum("ant,bnt->tab", Jw, Jw)  # (N, 60, 60)
+    A = Jd[:ndx].permute(2, 1, 0)  # (N, ndx, ndx)
+    B = Jd[ndx:].permute(2, 1, 0)  # (N, ndx, nu)
+
+    def bt(a):
+        return a.reshape((nb, T) + tuple(a.shape[1:])).contiguous()
+
+    return dict(A=bt(A), B=bt(B), d=bt(d0.T),
+                qx=bt(grad[:, :ndx]), qu=bt(grad[:, ndx:]),
+                Qxx=bt(H[:, :ndx, :ndx]), Quu=bt(H[:, ndx:, ndx:]),
+                Qux=bt(H[:, ndx:, :ndx]))
+
+
+def _linearize_cuda(solver, sp, xs, us, lam_eq, lam_in, mu):
+    ocp = solver.ocp
+    dtype, device = xs.dtype, xs.device
+    C, dims = _stage_consts(ocp, dtype, device)
+    nb, T = us.shape[:2]
+    nx, nu, ndx = solver.space.nx, ocp.nu, solver.space.ndx
+    shapes = dict(xs=(nb, T + 1, nx), us=(nb, T, nu), lam_eq=(nb, T, ocp.n_eq),
+                  lam_in=(nb, T, ocp.n_in), mu=(nb,))
+    t = _check(dict(xs=xs, us=us, lam_eq=lam_eq, lam_in=lam_in, mu=mu), shapes,
+               dtype, device)
+    params = _stage_params(sp, nb, T, ocp.nk, nx, nu, dtype, device)
+    su = solver._su(xs)
+    out = dict(A=(nb, T, ndx, ndx), B=(nb, T, ndx, nu), d=(nb, T, ndx),
+               qx=(nb, T, ndx), qu=(nb, T, nu), Qxx=(nb, T, ndx, ndx),
+               Quu=(nb, T, nu, nu), Qux=(nb, T, nu, ndx))
+    out = {k: torch.empty(v, dtype=dtype, device=device) for k, v in out.items()}
+    fn = getattr(_library(), f"smpc_stage_linearize_{_suffix(dtype)}")
+    with torch.cuda.device(device):
+        err = fn(ctypes.addressof(dims), C.data_ptr(), t["xs"].data_ptr(),
+                 t["us"].data_ptr(), *params, t["lam_eq"].data_ptr(),
+                 t["lam_in"].data_ptr(), t["mu"].data_ptr(),
+                 None if su is None else su.data_ptr(), nb, T,
+                 *[v.data_ptr() for v in out.values()], _stream(device))
+    _raise_on(err, "stage_linearize")
+    return out
+
+
+def stage_linearize(solver, sp, xs, us, lam_eq, lam_in, mu):
+    """K1+K2.  sp: stage params with leading (B, T); xs (B,T+1,nx),
+    us (B,T,nu), lam_eq (B,T,n_eq), lam_in (B,T,n_in), mu (B,).  Returns the
+    LQ data A (B,T,ndx,ndx), B (B,T,ndx,nu), d, qx (B,T,ndx), qu (B,T,nu),
+    Qxx, Quu, Qux of the AL Gauss-Newton model."""
+    dev = xs.device
+    if dev.type == "cpu":
+        return _linearize_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu)
+    if dev.type == "cuda":
+        out = _linearize_cuda(solver, sp, xs, us, lam_eq, lam_in, mu)
+        stage_linearize.launches += 1
+        return out
+    raise RuntimeError(f"stage_linearize: no kernel for device {dev}")
+
+
+stage_linearize.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K1 on the line-search candidates
+# ---------------------------------------------------------------------------
+
+
+def _eval_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu):
+    """Plain PyTorch twin of K1 in primal mode: stage bundles over the
+    horizon of every (scenario, step size).  xs (B,nA,T+1,nx),
+    us (B,nA,T,nu); sp, lam_eq, lam_in and mu per scenario.  Returns the AL
+    stage costs (B*nA, T), raw constraints g, h and the multiple-shooting
+    gaps (B*nA, T, ...)."""
+    nb, na, T = us.shape[:3]
+    P = tree_map(lambda a: _lanes(_repeat(a, na)), sp)
+    xs_f = xs.reshape((nb * na,) + xs.shape[2:])
+    us_f = us.reshape((nb * na,) + us.shape[2:])
+    X, U, Xn = _lanes(xs_f[:, :-1]), _lanes(us_f), _lanes(xs_f[:, 1:])
+    mu_l = _repeat(mu, na).repeat_interleave(T)
+    r_all, w_all, g, h, xnext = solver._stage_bundle_soa(
+        X, U, P, _lanes(_repeat(lam_eq, na)), _lanes(_repeat(lam_in, na)), mu_l)
+    gap = solver.space.difference_soa(Xn, xnext)
+    costs = 0.5 * torch.sum(w_all * r_all * r_all, dim=0)
+    n = nb * na
+    return (costs.reshape(n, T), _unlanes(g, n), _unlanes(h, n), _unlanes(gap, n))
+
+
+def _eval_cuda(solver, sp, xs, us, lam_eq, lam_in, mu):
+    ocp = solver.ocp
+    dtype, device = xs.dtype, xs.device
+    C, dims = _stage_consts(ocp, dtype, device)
+    nb, na, T = us.shape[:3]
+    nx, nu, ndx = solver.space.nx, ocp.nu, solver.space.ndx
+    shapes = dict(xs=(nb, na, T + 1, nx), us=(nb, na, T, nu),
+                  lam_eq=(nb, T, ocp.n_eq), lam_in=(nb, T, ocp.n_in), mu=(nb,))
+    t = _check(dict(xs=xs, us=us, lam_eq=lam_eq, lam_in=lam_in, mu=mu), shapes,
+               dtype, device)
+    params = _stage_params(sp, nb, T, ocp.nk, nx, nu, dtype, device)
+    n = nb * na
+    out = [torch.empty(s, dtype=dtype, device=device)
+           for s in ((n, T), (n, T, ocp.n_eq), (n, T, ocp.n_in), (n, T, ndx))]
+    fn = getattr(_library(), f"smpc_stage_eval_{_suffix(dtype)}")
+    with torch.cuda.device(device):
+        err = fn(ctypes.addressof(dims), C.data_ptr(), t["xs"].data_ptr(),
+                 t["us"].data_ptr(), *params, t["lam_eq"].data_ptr(),
+                 t["lam_in"].data_ptr(), t["mu"].data_ptr(), nb, na, T,
+                 *[o.data_ptr() for o in out], _stream(device))
+    _raise_on(err, "stage_eval")
+    return tuple(out)
+
+
+def stage_eval(solver, sp, xs, us, lam_eq, lam_in, mu):
+    """K1 in primal mode on the candidates.  xs (B,nA,T+1,nx),
+    us (B,nA,T,nu); sp (leading (B, T)), lam_eq, lam_in, mu per scenario.
+    Returns costs (B*nA,T), g (B*nA,T,n_eq), h (B*nA,T,n_in),
+    gap (B*nA,T,ndx)."""
+    dev = xs.device
+    if dev.type == "cpu":
+        return _eval_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu)
+    if dev.type == "cuda":
+        out = _eval_cuda(solver, sp, xs, us, lam_eq, lam_in, mu)
+        stage_eval.launches += 1
+        return out
+    raise RuntimeError(f"stage_eval: no kernel for device {dev}")
+
+
+stage_eval.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: terminal Jacobian
+# ---------------------------------------------------------------------------
+
+
+def _linearize_term_plain(solver, x, tp, lam_term, mu):
+    """Plain PyTorch twin of K5: the terminal Gauss-Newton expansion per
+    scenario with `torch.func.jacfwd`.  x (B,nx); tp leaves (B, ...).
+    Returns Vx (B,ndx), Vxx (B,ndx,ndx)."""
+    space, ocp = solver.space, solver.ocp
+
+    def resid(dx, xx, pp, lam, m):
+        xi = space.integrate(xx, dx)
+        r, _ = ocp.term_residuals(xi, pp)
+        g = ocp.term_eq_constraints(xi, pp)
+        return torch.cat([r, g + m * lam])
+
+    z = torch.zeros((x.shape[0], space.ndx), dtype=x.dtype, device=x.device)
+    r0 = vmap(resid)(z, x, tp, lam_term, mu)
+    J = vmap(jacfwd(resid))(z, x, tp, lam_term, mu)  # (B, nr, ndx)
+    _, w = ocp.term_residuals(x, tp)
+    w0 = torch.cat([w.expand(x.shape[0], w.shape[0]),
+                    (1.0 / mu)[:, None].expand(x.shape[0], lam_term.shape[1])],
+                   dim=1)
+    Vx = torch.einsum("bri,br->bi", J, w0 * r0)
+    Vxx = torch.einsum("bri,brj->bij", J, w0[..., None] * J)
+    return Vx, Vxx
+
+
+def _term_cuda(solver, x, tp, lam_term, mu):
+    ocp = solver.ocp
+    dtype, device = x.dtype, x.device
+    C, dims = _stage_consts(ocp, dtype, device)
+    nb = x.shape[0]
+    nx, ndx = solver.space.nx, solver.space.ndx
+    shapes = dict(x=(nb, nx), x_ref=(nb, nx), dcm_ref=(nb, 3),
+                  lam=(nb, ocp.n_term_eq), mu=(nb,))
+    t = _check(dict(x=x, x_ref=tp.x_ref, dcm_ref=tp.dcm_ref, lam=lam_term, mu=mu),
+               shapes, dtype, device)
+    Vx = torch.empty((nb, ndx), dtype=dtype, device=device)
+    Vxx = torch.empty((nb, ndx, ndx), dtype=dtype, device=device)
+    fn = getattr(_library(), f"smpc_term_linearize_{_suffix(dtype)}")
+    with torch.cuda.device(device):
+        err = fn(ctypes.addressof(dims), C.data_ptr(),
+                 *[t[k].data_ptr() for k in shapes], nb, Vx.data_ptr(),
+                 Vxx.data_ptr(), _stream(device))
+    _raise_on(err, "term_linearize")
+    return Vx, Vxx
+
+
+def term_linearize(solver, x, tp, lam_term, mu):
+    """K5.  x (B,nx) terminal states, tp terminal params (leaves (B, ...)),
+    lam_term (B,n_term_eq), mu (B,).  Returns Vx (B,ndx), Vxx (B,ndx,ndx)."""
+    dev = x.device
+    if dev.type == "cpu":
+        return _linearize_term_plain(solver, x, tp, lam_term, mu)
+    if dev.type == "cuda":
+        out = _term_cuda(solver, x, tp, lam_term, mu)
+        term_linearize.launches += 1
+        return out
+    raise RuntimeError(f"term_linearize: no kernel for device {dev}")
+
+
+term_linearize.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K9: the fused tick's bookkeeping
+# ---------------------------------------------------------------------------
+
+EMPTY = 2**30  # sentinel of an empty event-queue slot (int32)
+WALKING = 0  # mpc.WALKING
+
+
+class TickRefs(NamedTuple):
+    walking: torch.Tensor  # (B,) bool
+    takeoff: torch.Tensor  # (B, nk, QMAX) int32
+    land: torch.Tensor  # (B, nk, QMAX) int32
+    p_init: torch.Tensor  # (B, nk, 3) swing Bezier endpoints
+    p_final: torch.Tensor  # (B, nk, 3)
+    refs: torch.Tensor  # (B, T, nk, 3) foot references of every stage
+    com_ref: torch.Tensor  # (B, 3) terminal-constraint CoM target
+
+
+def queue_tick(q, dec_mask, append_flag, append_val):
+    """Append (pre-decrement, as in recedeWithCycle) -> decrement -> pop the
+    head if negative, on int32 queues (..., QMAX) sorted ascending with
+    EMPTY padding (simple_mpc_tpu/mpc/fused.py `_queue_tick`)."""
+    valid = q < EMPTY // 2
+    n_valid = torch.sum(valid, dim=-1)
+    slot = torch.arange(q.shape[-1], device=q.device)
+    q = torch.where((slot == n_valid[..., None]) & append_flag[..., None],
+                    append_val, q)
+    valid = q < EMPTY // 2
+    q = torch.where(valid & dec_mask, q - 1, q)
+    pop = q[..., 0] < 0
+    shifted = torch.cat([q[..., 1:], torch.full_like(q[..., :1], EMPTY)], dim=-1)
+    return torch.where(pop[..., None], shifted, q)
+
+
+def tick_refs_plain(fused, carry, x_meas):
+    """Plain PyTorch twin of K9 with the scenario axis leading every carry
+    leaf: measured-state kinematics, walking, the queue ticks, the Raibert
+    footsteps and the swing references (simple_mpc_tpu/mpc/fused.py
+    183-246)."""
+    # imported here: the mpc package imports the solver, which imports this
+    # module
+    from .mpc.foot_trajectory import sample_swing_batched
+
+    m, s, nk, T = fused.model, fused.settings, fused.nk, fused.T
+    L = carry.plan.shape[1]
+    oR, op = soa.fk_world(m, x_meas[:, : m.nq].T)
+    _, fp = soa.frame_placements_world(m, oR, op, fused.frame_ids)
+    fp = fp.permute(2, 0, 1)  # (B, feet + refs + base, 3)
+    foot_p, ref_p, base_p = fp[:, :nk], fp[:, nk: 2 * nk], fp[:, 2 * nk]
+
+    support_last = torch.sum(carry.stage_params.contact_active[:, T - 1], dim=-1)
+    walking = (carry.now == WALKING) | (support_last < nk)
+    w = walking[:, None]
+    plan = torch.where(walking[:, None, None], torch.roll(carry.plan, -1, 1), carry.plan)
+    tail, prev = plan[:, L - 1] > 0.5, plan[:, L - 2] > 0.5
+    takeoff = queue_tick(carry.takeoff, w[..., None] | (carry.takeoff < T),
+                         w & ~tail & prev, L + T)
+    land = queue_tick(carry.land, w[..., None] | (carry.land < T),
+                      w & tail & ~prev, L + T)
+
+    land_head = torch.where(land[..., 0] < EMPTY // 2, land[..., 0], -1)
+    update = (land_head >= s.T_fly)[..., None]
+    twist = torch.stack([-(ref_p[..., 1] - base_p[:, None, 1]),
+                         ref_p[..., 0] - base_p[:, None, 0]], dim=-1)
+    vb = carry.velocity_base[:, None]
+    horiz = (vb[..., :2] + vb[..., 5:6] * twist) * ((s.T_fly + s.T_contact) * s.timestep)
+    next_pose = torch.cat([ref_p[..., :2] + horiz, foot_p[..., 2:3]], dim=-1)
+    p_init = torch.where(update, foot_p, carry.p_init)
+    p_final = torch.where(update, next_pose, carry.p_final)
+    refs = sample_swing_batched(p_init, p_final, s.swing_apex, land_head, s.T_fly,
+                                T).transpose(1, 2)
+    com_ref = torch.mean(refs[:, T - 1], dim=1)
+    com_ref = torch.cat([com_ref[:, :2], com_ref[:, 2:] + carry.com0_z[:, None]], dim=1)
+    return TickRefs(walking, takeoff, land, p_init, p_final, refs, com_ref)
+
+
+def _tick_cuda(fused, carry, x_meas):
+    ocp, s = fused.ocp, fused.settings
+    dtype, device = x_meas.dtype, x_meas.device
+    C, dims = _stage_consts(ocp, dtype, device)
+    nb, L, nk = carry.plan.shape
+    T, qmax = fused.T, carry.takeoff.shape[-1]
+    shapes = dict(x=(nb, ocp.nq + ocp.nv), active_last=(nb, nk), now=(nb,),
+                  plan=(nb, L, nk), takeoff=(nb, nk, qmax), land=(nb, nk, qmax),
+                  p_init=(nb, nk, 3), p_final=(nb, nk, 3), vbase=(nb, 6), com0_z=(nb,))
+    t = _check(dict(x=x_meas, active_last=carry.stage_params.contact_active[:, T - 1],
+                    now=carry.now, plan=carry.plan, takeoff=carry.takeoff,
+                    land=carry.land, p_init=carry.p_init, p_final=carry.p_final,
+                    vbase=carry.velocity_base, com0_z=carry.com0_z),
+               shapes, dtype, device, ints=("now", "takeoff", "land"))
+
+    def empty(shape, dt=dtype):
+        return torch.empty(shape, dtype=dt, device=device)
+
+    out = TickRefs(empty((nb,), torch.int32), empty((nb, nk, qmax), torch.int32),
+                   empty((nb, nk, qmax), torch.int32), empty((nb, nk, 3)),
+                   empty((nb, nk, 3)), empty((nb, T, nk, 3)), empty((nb, 3)))
+    fn = getattr(_library(), f"smpc_tick_refs_{_suffix(dtype)}")
+    with torch.cuda.device(device):
+        err = fn(ctypes.addressof(dims), C.data_ptr(),
+                 *[t[k].data_ptr() for k in shapes], nb, T, L, qmax, EMPTY,
+                 s.T_fly, float((s.T_fly + s.T_contact) * s.timestep),
+                 float(s.swing_apex), *[o.data_ptr() for o in out], _stream(device))
+    _raise_on(err, "tick_refs")
+    return out._replace(walking=out.walking != 0)
+
+
+def tick_refs(fused, carry, x_meas):
+    """K9.  carry: an `MPCCarry` with the scenario axis leading every leaf;
+    x_meas (B,nx).  Returns `TickRefs`."""
+    dev = x_meas.device
+    if dev.type == "cpu":
+        return tick_refs_plain(fused, carry, x_meas)
+    if dev.type == "cuda":
+        out = _tick_cuda(fused, carry, x_meas)
+        tick_refs.launches += 1
+        return out
+    raise RuntimeError(f"tick_refs: no kernel for device {dev}")
+
+
+tick_refs.launches = 0
+
+
+KERNELS = (stage_linearize, stage_eval, riccati_backward, linear_rollout,
+           term_linearize, tick_refs)
+
+
+def reset_launches():
+    """Zero every kernel's launch counter."""
+    for k in KERNELS:
+        k.launches = 0

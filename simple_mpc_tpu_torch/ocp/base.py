@@ -182,3 +182,15 @@ class OCPHandler:
 
     def set_init_state(self, x0):
         self.problem = dataclasses.replace(self.problem, x0=self._tensor(x0))
+
+    # -- pure hooks of the fused MPC tick -------------------------------------
+    def x0_from_measurement(self, x):
+        """Problem initial state from a measured full robot state (q, v):
+        the identity for multibody-state formulations."""
+        return x
+
+    def write_references(self, stage_params, term_params, foot_refs,
+                         x_reference, velocity_base, com_ref):
+        """Pure counterpart of the per-tick reference writes of
+        MPC.update_step_tracker_references; returns new param tuples."""
+        raise NotImplementedError

@@ -327,3 +327,16 @@ class KinodynamicsOCP(OCPHandler):
 
     def get_problem_state(self, data_handler):
         return torch.cat([data_handler.data.q, data_handler.data.v])
+
+    def write_references(self, stage_params, term_params, foot_refs,
+                         x_reference, velocity_base, com_ref):
+        """set_all_foot_translations + set_reference_state(T-1) +
+        set_velocity_base(T-1) + update_terminal_constraint, fused and pure;
+        any leading batch axes.  foot_refs (..., T, nk, 3), x_reference
+        (..., nx), velocity_base (..., 6), com_ref (..., 3)."""
+        xr = torch.cat([x_reference[..., : self.nq], velocity_base,
+                        x_reference[..., self.nq + 6:]], dim=-1)
+        sp = stage_params._replace(
+            foot_ref_p=foot_refs,
+            x_ref=torch.cat([stage_params.x_ref[..., :-1, :], xr[..., None, :]], dim=-2))
+        return sp, term_params._replace(dcm_ref=com_ref)

@@ -8,15 +8,18 @@ AL penalty, BCL tolerances, line-search choice and divergence flag, exactly
 as the JAX package's `BatchedSolver` (a vmap of `run`) does.
 
 One iteration:
-  * K1/K2 `_linearize_traj_soa`: the stage bundle on N = B*T lanes and its
-    forward-mode tangents along the 18 dq, 18 dv and 24 du basis directions
-    (`torch.func.jvp` under `torch.func.vmap`), then Gauss-Newton products;
-  * K5 `_linearize_term`: terminal Jacobian with `torch.func.jacfwd`;
+  * K1/K2 `kernels.stage_linearize`: the stage bundle on N = B*T lanes,
+    its forward tangents along the 18 dq, 18 dv and 24 du basis directions
+    and the Gauss-Newton products;
+  * K5 `kernels.term_linearize`: the terminal Jacobian;
   * K3 `kernels.riccati_backward`: the serial Riccati pass;
   * K4 `kernels.linear_rollout` for every step size, then the Lie integrate,
-    the stage bundle on every candidate, the AL merit and an argmin per
-    scenario;
+    K1 `kernels.stage_eval` on every candidate, the AL merit and an argmin
+    per scenario;
   * the BCL multiplier / penalty schedule per scenario.
+Each kernel runs its plain PyTorch twin on CPU tensors.  On the card an
+iteration makes no host synchronization: every constant it needs is made
+once per solver and device.
 
 Float32 on the card needs the dtype floors of the JAX package (mu >=
 sqrt(eps), reg >= 50 eps) and full-precision matmuls: TF32 products are the
@@ -31,9 +34,9 @@ from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.func import jacfwd, jvp, vmap
 
 from .. import kernels
+from ..kernels import _repeat
 from ..ocp.base import tree_map
 
 
@@ -84,22 +87,6 @@ class Results(NamedTuple):
     alpha: torch.Tensor  # (B,) step size the last line search accepted
 
 
-def _lanes(x):
-    """(B, T, n...) -> (n..., B*T): scenarios and stages into the lanes."""
-    return x.reshape((-1,) + tuple(x.shape[2:])).movedim(0, -1)
-
-
-def _unlanes(X, nb):
-    """(n..., B*T) -> (B, T, n...)."""
-    Y = X.movedim(-1, 0)
-    return Y.reshape((nb, -1) + tuple(Y.shape[1:]))
-
-
-def _repeat(x, n):
-    """(B, ...) -> (B*n, ...), each scenario repeated n times in a row."""
-    return x.repeat_interleave(n, dim=0)
-
-
 class ProxDDPSolver:
     """Solver bound to one OCP formulation (static structure)."""
 
@@ -121,11 +108,22 @@ class ProxDDPSolver:
         if self._u_scale is not None and self._u_scale.shape != (ocp.nu,):
             raise ValueError(
                 f"u_scale shape {self._u_scale.shape} != (nu,) = ({ocp.nu},)")
+        self._consts = {}
+
+    def _const(self, name, values, like):
+        """`values` as a tensor on `like`'s device and dtype, made once."""
+        key = (name, like.dtype, like.device)
+        c = self._consts.get(key)
+        if c is None:
+            c = torch.as_tensor(np.asarray(values, np.float64), dtype=like.dtype,
+                                device=like.device)
+            self._consts[key] = c
+        return c
 
     def _su(self, like):
         if self._u_scale is None:
             return None
-        return torch.as_tensor(self._u_scale, dtype=like.dtype, device=like.device)
+        return self._const("u_scale", self._u_scale, like)
 
     # ------------------------------------------------------------------
     # Fused trajectory evaluation
@@ -140,20 +138,6 @@ class ProxDDPSolver:
                            act / mu], dim=0)
         return r_all, w_all, g, h, xnext
 
-    def _eval_traj(self, P, xs, us, lam_eq, lam_in, mu):
-        """Stage bundles over the horizon of every scenario: AL stage costs
-        (B, T), raw constraints and multiple-shooting gaps (B, T, ...).
-        P: stage params in lane layout (..., B*T)."""
-        nb, T = us.shape[:2]
-        X, U, Xn = _lanes(xs[:, :-1]), _lanes(us), _lanes(xs[:, 1:])
-        mu_l = mu.repeat_interleave(T)
-        r_all, w_all, g, h, xnext = self._stage_bundle_soa(
-            X, U, P, _lanes(lam_eq), _lanes(lam_in), mu_l)
-        gap = self.space.difference_soa(Xn, xnext)
-        costs = 0.5 * torch.sum(w_all * r_all * r_all, dim=0)
-        return (costs.reshape(nb, T), _unlanes(g, nb), _unlanes(h, nb),
-                _unlanes(gap, nb))
-
     def _term_al_cost(self, x, p, lam_term, mu):
         r, w = self.ocp.term_residuals(x, p)
         g = self.ocp.term_eq_constraints(x, p)
@@ -165,86 +149,6 @@ class ProxDDPSolver:
         gap_pen = 0.5 / mu * torch.sum(gaps * gaps, dim=(1, 2))
         return (torch.sum(costs, dim=1) + term_cost + gap_pen
                 + 0.5 / mu * torch.sum(x0_gap * x0_gap, dim=-1))
-
-    # ------------------------------------------------------------------
-    # Linearization (K1/K2 and K5)
-    # ------------------------------------------------------------------
-    def _linearize_traj_soa(self, P, xs, us, lam_eq, lam_in, mu):
-        """Whole-horizon linearization with scenarios and stages in the
-        lanes and the tangent basis on a vmapped leading axis.  Returns the
-        LQ data A, B, d, qx, qu, Qxx, Quu, Qux with leading (B, T)."""
-        space, ocp = self.space, self.ocp
-        ndx, nu = space.ndx, ocp.nu
-        split = space.tangent_split
-        nb, T = us.shape[:2]
-        N = nb * T
-        dtype, device = xs.dtype, xs.device
-        X, U, Xn = _lanes(xs[:, :-1]), _lanes(us), _lanes(xs[:, 1:])
-        LE, LI = _lanes(lam_eq), _lanes(lam_in)
-        mu_l = mu.repeat_interleave(T)
-        su = self._su(xs)
-        su = None if su is None else su[:, None]
-
-        def bundle(dq, dv, du):
-            Xp = space.integrate_parts_soa(X, dq, dv)
-            r_all, w_all, _, _, xnext = self._stage_bundle_soa(
-                Xp, U + (du if su is None else su * du), P, LE, LI, mu_l)
-            return r_all, space.difference_soa(Xn, xnext), w_all
-
-        zq = torch.zeros((split, N), dtype=dtype, device=device)
-        zv = torch.zeros((ndx - split, N), dtype=dtype, device=device)
-        zu = torch.zeros((nu, N), dtype=dtype, device=device)
-
-        def tangents(fn, z):
-            n = z.shape[0]
-            basis = torch.eye(n, dtype=dtype, device=device)[..., None].expand(n, n, N)
-            return vmap(lambda t: jvp(fn, (z,), (t,))[1])(basis)
-
-        r0, d0, w0 = bundle(zq, zv, zu)
-        Jr_q, Jd_q = tangents(lambda a: bundle(a, zv, zu)[:2], zq)
-        Jr_v, Jd_v = tangents(lambda a: bundle(zq, a, zu)[:2], zv)
-        Jr_u, Jd_u = tangents(lambda a: bundle(zq, zv, a)[:2], zu)
-        Jr = torch.cat([Jr_q, Jr_v, Jr_u], dim=0)  # (ndx+nu, nr, N)
-        Jd = torch.cat([Jd_q, Jd_v, Jd_u], dim=0)  # (ndx+nu, ndx, N)
-
-        # one sqrt(w)-scaled copy of Jr feeds both Gauss-Newton products
-        ws = torch.sqrt(w0)
-        Jw = Jr * ws[None]
-        wr = ws * r0
-        grad = torch.einsum("ent,nt->te", Jw, wr)  # (N, ndx+nu)
-        H = torch.einsum("ant,bnt->tab", Jw, Jw)  # (N, 60, 60)
-        A = Jd[:ndx].permute(2, 1, 0)  # (N, ndx, ndx)
-        B = Jd[ndx:].permute(2, 1, 0)  # (N, ndx, nu)
-
-        def bt(a):
-            return a.reshape((nb, T) + tuple(a.shape[1:])).contiguous()
-
-        return dict(A=bt(A), B=bt(B), d=bt(d0.T),
-                    qx=bt(grad[:, :ndx]), qu=bt(grad[:, ndx:]),
-                    Qxx=bt(H[:, :ndx, :ndx]), Quu=bt(H[:, ndx:, ndx:]),
-                    Qux=bt(H[:, ndx:, :ndx]))
-
-    def _linearize_term(self, x, p, lam_term, mu):
-        """Terminal Gauss-Newton expansion per scenario: Vx (B, ndx),
-        Vxx (B, ndx, ndx)."""
-        space, ocp = self.space, self.ocp
-
-        def resid(dx, xx, pp, lam, m):
-            xi = space.integrate(xx, dx)
-            r, _ = ocp.term_residuals(xi, pp)
-            g = ocp.term_eq_constraints(xi, pp)
-            return torch.cat([r, g + m * lam])
-
-        z = torch.zeros((x.shape[0], space.ndx), dtype=x.dtype, device=x.device)
-        r0 = vmap(resid)(z, x, p, lam_term, mu)
-        J = vmap(jacfwd(resid))(z, x, p, lam_term, mu)  # (B, nr, ndx)
-        _, w = ocp.term_residuals(x, p)
-        w0 = torch.cat([w.expand(x.shape[0], w.shape[0]),
-                        (1.0 / mu)[:, None].expand(x.shape[0], lam_term.shape[1])],
-                       dim=1)
-        Vx = torch.einsum("bri,br->bi", J, w0 * r0)
-        Vxx = torch.einsum("bri,brj->bij", J, w0[..., None] * J)
-        return Vx, Vxx
 
     # ------------------------------------------------------------------
     # Backward pass (K3) and candidates (K4)
@@ -310,13 +214,13 @@ class ProxDDPSolver:
         mu = torch.clamp(mu, min=mu_floor)
         reg = max(float(st.reg_init), 50.0 * eps)
         n_iters = st.max_iters if max_iters is None else max_iters
-        alphas = torch.as_tensor(st.alphas, dtype=dtype, device=device)
+        alphas = self._const("alphas", st.alphas, xs)
         na = alphas.shape[0]
         tol = float(st.tol)
 
-        # stage params in lane layout, for the iterate and for the candidates
-        P = tree_map(_lanes, problems.stage_params)
-        Pc = tree_map(lambda a: _lanes(_repeat(a, na)), problems.stage_params)
+        # the kernels read the parameters once, in (B, T, ...) layout
+        sp = tree_map(torch.Tensor.contiguous, problems.stage_params)
+        tp = tree_map(torch.Tensor.contiguous, problems.term_params)
         tp_c = tree_map(lambda a: _repeat(a, na), problems.term_params)
         x0_c = _repeat(problems.x0, na)
         rows = torch.arange(nb, device=device)
@@ -325,18 +229,16 @@ class ProxDDPSolver:
         omega = full(-1.0)  # set from the first dual residual
         prim = dual_res = merit = ks = Ks = alpha = None
         for _ in range(n_iters):
-            lin = self._linearize_traj_soa(P, xs, us, lam_eq, lam_in, mu)
-            Vx_T, Vxx_T = self._linearize_term(xs[:, -1], problems.term_params,
-                                               lam_term, mu)
+            lin = kernels.stage_linearize(self, sp, xs, us, lam_eq, lam_in, mu)
+            Vx_T, Vxx_T = kernels.term_linearize(self, xs[:, -1], tp, lam_term, mu)
             ks, Ks, dual_res = self._backward(lin, Vx_T, Vxx_T, reg)
             dx0 = self.space.difference(xs[:, 0], problems.x0)  # force_initial_condition
 
             xs_c, us_c = self._candidates(xs, us, lin, ks, Ks, dx0, alphas)
             xs_f = xs_c.reshape((nb * na,) + xs_c.shape[2:])
-            us_f = us_c.reshape((nb * na,) + us_c.shape[2:])
             mu_c = _repeat(mu, na)
-            costs, g_c, h_c, gap_c = self._eval_traj(
-                Pc, xs_f, us_f, _repeat(lam_eq, na), _repeat(lam_in, na), mu_c)
+            costs, g_c, h_c, gap_c = kernels.stage_eval(self, sp, xs_c, us_c, lam_eq,
+                                                        lam_in, mu)
             term = self._term_al_cost(xs_f[:, -1], tp_c, _repeat(lam_term, na), mu_c)
             x0_gap = self.space.difference(xs_f[:, 0], x0_c)
             m = self._merit_from(costs, gap_c, x0_gap, term, mu_c).reshape(nb, na)

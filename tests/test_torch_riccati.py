@@ -91,17 +91,16 @@ def case():
 
 
 def test_linearization_matches_jax(case):
-    from simple_mpc_tpu_torch.ocp.base import tree_map
-    from simple_mpc_tpu_torch.solver.proxddp import _lanes
+    from simple_mpc_tpu_torch import kernels
 
     ts, c = case["ts"], case
-    P = tree_map(_lanes, c["tprob"].stage_params)
     mu = torch.full((NB,), MU, dtype=torch.float64)
-    lin = ts._linearize_traj_soa(P, c["xs"], c["us"], c["lam_eq"], c["lam_in"], mu)
+    lin = kernels.stage_linearize(ts, c["tprob"].stage_params, c["xs"], c["us"],
+                                  c["lam_eq"], c["lam_in"], mu)
     for k, v in c["ref"]["lin"].items():
         assert _rel(lin[k], v) < TOL, k
-    Vx, Vxx = ts._linearize_term(c["xs"][:, -1], c["tprob"].term_params,
-                                 c["lam_term"], mu)
+    Vx, Vxx = kernels.term_linearize(ts, c["xs"][:, -1], c["tprob"].term_params,
+                                     c["lam_term"], mu)
     assert _rel(Vx, c["ref"]["Vx"]) < TOL
     assert _rel(Vxx, c["ref"]["Vxx"]) < TOL
 

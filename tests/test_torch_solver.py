@@ -96,13 +96,11 @@ def runs():
 
 def _candidates(solver, probs, xs, us, lams, mu):
     """The port's line-search candidates of one iteration from (xs, us)."""
-    from simple_mpc_tpu_torch.ocp.base import tree_map
-    from simple_mpc_tpu_torch.solver.proxddp import _lanes
+    from simple_mpc_tpu_torch import kernels
 
     lam_eq, lam_in, lam_term = lams
-    P = tree_map(_lanes, probs.stage_params)
-    lin = solver._linearize_traj_soa(P, xs, us, lam_eq, lam_in, mu)
-    Vx, Vxx = solver._linearize_term(xs[:, -1], probs.term_params, lam_term, mu)
+    lin = kernels.stage_linearize(solver, probs.stage_params, xs, us, lam_eq, lam_in, mu)
+    Vx, Vxx = kernels.term_linearize(solver, xs[:, -1], probs.term_params, lam_term, mu)
     ks, Ks, _ = solver._backward(lin, Vx, Vxx, 1e-9)
     dx0 = solver.space.difference(xs[:, 0], probs.x0)
     alphas = torch.as_tensor(solver.settings.alphas, dtype=xs.dtype)
