@@ -1,10 +1,10 @@
 """simple_mpc_tpu_torch — PyTorch/CUDA port of simple_mpc_tpu.
 
 The JAX package `simple_mpc_tpu` is the reference; this package re-implements
-its main path (Go2 kinodynamics OCP, batched ProxDDP solver, host MPC) with
-PyTorch, and the serial kernels of the solver (Riccati backward pass, linear
-rollout) as hand-written CUDA kernels for Hopper (`kernels.py`, `csrc/`).
-It never imports JAX.
+its main path (Go2 kinodynamics OCP, batched ProxDDP solver with the serial
+or the parallel-in-time Riccati pass, host MPC, fused tick) with PyTorch,
+and the JAX package's device kernels as hand-written CUDA kernels for Hopper
+(`kernels.py`, `csrc/`).  It never imports JAX.
 """
 __version__ = "0.1.0"
 

@@ -1,7 +1,8 @@
 """Canonical robot + OCP configurations mirroring the reference examples.
 
 Port of the Go2 kinodynamics entries of `simple_mpc_tpu.configs` (the
-settings dictionaries of examples/go2_kinodynamics.py).
+settings dictionaries of examples/go2_kinodynamics.py), and the fused-tick
+engines of the JAX package's bench (`bench.py` `_make_fused`).
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ def go2_kinodynamics_config(mh: RobotModelHandler) -> dict:
     )
 
 
-def make_go2_kinodynamics(T: int = 100, device="cpu", dtype=torch.float64):
+def make_go2_kinodynamics(T: int = 100, device="cuda", dtype=torch.float64):
     """Flagship configuration: Go2 kinodynamic MPC, horizon T, with its
     problem built on `device` in `dtype`."""
     from .ocp.kinodynamics import KinodynamicsOCP
@@ -50,3 +51,29 @@ def make_go2_kinodynamics(T: int = 100, device="cpu", dtype=torch.float64):
     x0 = np.asarray(mh.reference_state)
     ocp.create_problem(x0, T, 3, -9.81, False)
     return ocp, mh, x0
+
+
+def make_go2_fused(T: int = 100, device="cuda", dtype=torch.float32, parallel=False):
+    """The fused-tick engine of the JAX package's bench (`bench.py:277-311`):
+    Go2 kinodynamics, trot 10/30/10/30 at 0.2 m/s, apex 0.15 m, one
+    iteration a tick with mu_init 1e-6, init_max_iters 2.  `parallel=False`
+    is the throughput configuration (serial Riccati, K3); `parallel=True` the
+    B=1 latency configuration (associative-scan Riccati, K6), at full
+    precision (the bench's bfloat16 tangents are not ported).  Returns
+    (fused, carry)."""
+    from .mpc import MPC, FusedMPC, MPCSettings
+    from .parallel import BatchedSolver
+    from .solver.proxddp import ProxDDPSolver, SolverSettings
+
+    ocp, mh, _ = make_go2_kinodynamics(T, device=device, dtype=dtype)
+    mpc = MPC(MPCSettings(support_force=mh.mass * 9.81, max_iters=1, T_fly=30,
+                          T_contact=10, swing_apex=0.15, init_max_iters=2), ocp)
+    mpc.solver = BatchedSolver(ProxDDPSolver(ocp, SolverSettings(
+        tol=mpc.settings.TOL, mu_init=1e-6, max_iters=1, parallel=parallel)))
+    FL, FR, RL, RR = mh.feet_names
+    allc = {n: True for n in mh.feet_names}
+    mpc.generate_cycle_horizon([allc] * 10 + [{FL: True, FR: False, RL: False, RR: True}] * 30
+                               + [allc] * 10 + [{FL: False, FR: True, RL: True, RR: False}] * 30)
+    mpc.switch_to_walk(np.array([0.2, 0, 0, 0, 0, 0]))
+    fused = FusedMPC(mpc)
+    return fused, fused.make_carry(mpc)

@@ -1,5 +1,5 @@
-"""Carry problems, solver iterates and fused-tick carries between numpy and
-the port.
+"""Carry problems, solver iterates, linearizations and fused-tick carries
+between numpy and the port.
 
 The JAX package's `Problem` leaves, `Results` and `MPCCarry`, taken as
 numpy arrays, become the port's tensors and back.  This is how the same
@@ -44,6 +44,16 @@ def problem_from_numpy(ocp, stage_params, term_params, x0, device,
 def lams_from_numpy(lam_eq, lam_in, lam_term, device, dtype=torch.float64):
     """(lam_eq, lam_in, lam_term) multiplier tensors for a warm start."""
     return tuple(_tensor(a, device, dtype) for a in (lam_eq, lam_in, lam_term))
+
+
+def lin_from_numpy(lin, device, dtype=torch.float64) -> dict:
+    """The port's LQ data (A, B, d, qx, qu, Qxx, Quu, Qux with leading
+    (B, T)) from a linearization dict with those keys, such as the JAX
+    solver's `_linearize_traj_soa`, as numpy arrays with leading (T,) (one
+    scenario, given a batch axis of 1) or (B, T)."""
+    one = np.ndim(lin["A"]) == 3
+    return {k: _tensor(np.asarray(lin[k])[None] if one else lin[k], device, dtype)
+            for k in ("A", "B", "d", "qx", "qu", "Qxx", "Quu", "Qux")}
 
 
 def results_to_numpy(res) -> dict:

@@ -9,6 +9,10 @@ K1 `stage_eval` (csrc/linearize.cu) replaces the candidate evaluation of
 K3 `riccati_backward` (csrc/riccati.cu) replaces `ProxDDPSolver._backward`
 (the serial `lax.scan` step with `ops/soa_dyn.py`
 chol_unrolled/chol_solve_unrolled).
+K6 `parallel_riccati_backward` (csrc/parallel_riccati.cu) replaces
+`simple_mpc_tpu/solver/parallel_riccati.py` `parallel_backward`, the
+associative-scan backward pass of `SolverSettings(parallel=True)`; its twin
+is `solver/parallel_riccati.py`.
 K4 `linear_rollout` (csrc/rollout.cu) replaces `ProxDDPSolver._candidate`'s
 rollout scan.
 K5 `term_linearize` (csrc/linearize.cu) replaces
@@ -48,11 +52,12 @@ from .ocp.cones import FRICTION_EPS
 from .ops import soa
 from .ops import world as _world
 from .ops.soa_dyn import chol_solve_unrolled, chol_unrolled
+from .solver.parallel_riccati import parallel_backward as parallel_riccati_backward_plain
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("riccati.cu", "rollout.cu", "linearize.cu", "tick.cu")
+SOURCES = ("riccati.cu", "parallel_riccati.cu", "rollout.cu", "linearize.cu", "tick.cu")
 HEADERS = ("stage.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -121,6 +126,7 @@ def _library() -> ctypes.CDLL:
         P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         signatures = dict(
             riccati_backward=[P] * 10 + [D, D, I, I, I, I] + [P] * 4,
+            parallel_riccati_backward=[P] * 10 + [D, I, I, I, I] + [P] * 5,
             linear_rollout=[P] * 7 + [I] * 5 + [P] * 3,
             stage_linearize=[P] * 13 + [I] * 2 + [P] * 9,
             stage_eval=[P] * 12 + [I] * 3 + [P] * 5,
@@ -236,7 +242,9 @@ def riccati_backward_plain(lin: dict, Vx_T, Vxx_T, reg: float):
     return torch.stack(ks, 1), torch.stack(Ks, 1), torch.stack(Qus, 1)
 
 
-def _riccati_cuda(lin: dict, Vx_T, Vxx_T, reg: float):
+def _backward_args(lin: dict, Vx_T, Vxx_T):
+    """(dims, checked contiguous inputs in kernel order, empty ks/Ks/Qus)
+    of a backward-pass kernel."""
     A = lin["A"]
     dtype, device = A.dtype, A.device
     nb, T, nx = A.shape[:3]
@@ -247,17 +255,20 @@ def _riccati_cuda(lin: dict, Vx_T, Vxx_T, reg: float):
                   Vx_T=(nb, nx), Vxx_T=(nb, nx, nx))
     t = _check({**{k: lin[k] for k in LIN_KEYS}, "Vx_T": Vx_T, "Vxx_T": Vxx_T},
                shapes, dtype, device)
-    ks = torch.empty((nb, T, nu), dtype=dtype, device=device)
-    Ks = torch.empty((nb, T, nu, nx), dtype=dtype, device=device)
-    Qus = torch.empty((nb, T, nu), dtype=dtype, device=device)
+    out = [torch.empty(s, dtype=dtype, device=device)
+           for s in ((nb, T, nu), (nb, T, nu, nx), (nb, T, nu))]
+    return (nb, T, nx, nu), [t[k].data_ptr() for k in shapes], out
+
+
+def _riccati_cuda(lin: dict, Vx_T, Vxx_T, reg: float):
+    dtype, device = Vx_T.dtype, Vx_T.device
+    dims, inputs, out = _backward_args(lin, Vx_T, Vxx_T)
     fn = getattr(_library(), f"smpc_riccati_backward_{_suffix(dtype)}")
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*[t[k].data_ptr() for k in (*LIN_KEYS, "Vx_T", "Vxx_T")],
-                 float(reg), float(torch.finfo(dtype).eps), nb, T, nx, nu,
-                 ks.data_ptr(), Ks.data_ptr(), Qus.data_ptr(), stream)
+        err = fn(*inputs, float(reg), float(torch.finfo(dtype).eps), *dims,
+                 *[o.data_ptr() for o in out], _stream(device))
     _raise_on(err, "riccati_backward")
-    return ks, Ks, Qus
+    return tuple(out)
 
 
 def riccati_backward(lin: dict, Vx_T, Vxx_T, reg: float, dual_scale=None):
@@ -279,6 +290,47 @@ def riccati_backward(lin: dict, Vx_T, Vxx_T, reg: float, dual_scale=None):
 
 
 riccati_backward.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6: parallel-in-time Riccati backward pass
+# ---------------------------------------------------------------------------
+
+
+def _parallel_riccati_cuda(lin: dict, Vx_T, Vxx_T, reg: float):
+    dtype, device = Vx_T.dtype, Vx_T.device
+    (nb, T, nx, nu), inputs, out = _backward_args(lin, Vx_T, Vxx_T)
+    # the two element buffers (B, T+1, 3 nx^2 + 2 nx) the scan levels
+    # alternate between; freed to the caching allocator on return, its next
+    # user runs after these launches on the same stream
+    work = torch.empty((2, nb, T + 1, 3 * nx * nx + 2 * nx), dtype=dtype, device=device)
+    fn = getattr(_library(), f"smpc_parallel_riccati_backward_{_suffix(dtype)}")
+    with torch.cuda.device(device):
+        err = fn(*inputs, float(reg), nb, T, nx, nu, work.data_ptr(),
+                 *[o.data_ptr() for o in out], _stream(device))
+    _raise_on(err, "parallel_riccati_backward")
+    return tuple(out)
+
+
+def parallel_riccati_backward(lin: dict, Vx_T, Vxx_T, reg: float, dual_scale=None):
+    """K6, the contract of `riccati_backward` with the semantics of the
+    JAX package's `parallel_backward` (Quu + reg I without Jacobi scaling,
+    NaN where a Cholesky fails).  One call launches the elimination,
+    ceil(log2(T+1)) scan levels and the gain recovery."""
+    dev = lin["A"].device
+    if dev.type == "cpu":
+        ks, Ks, Qus = parallel_riccati_backward_plain(lin, Vx_T, Vxx_T, reg)
+    elif dev.type == "cuda":
+        ks, Ks, Qus = _parallel_riccati_cuda(lin, Vx_T, Vxx_T, reg)
+        parallel_riccati_backward.launches += 1
+    else:
+        raise RuntimeError(f"parallel_riccati_backward: no kernel for device {dev}")
+    if dual_scale is not None:
+        Qus = Qus * dual_scale
+    return ks, Ks, torch.amax(torch.abs(Qus), dim=(1, 2))
+
+
+parallel_riccati_backward.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -813,8 +865,8 @@ def tick_refs(fused, carry, x_meas):
 tick_refs.launches = 0
 
 
-KERNELS = (stage_linearize, stage_eval, riccati_backward, linear_rollout,
-           term_linearize, tick_refs)
+KERNELS = (stage_linearize, stage_eval, riccati_backward, parallel_riccati_backward,
+           linear_rollout, term_linearize, tick_refs)
 
 
 def reset_launches():

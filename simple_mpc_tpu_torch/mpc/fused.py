@@ -15,8 +15,11 @@ One `step(carry, x_measured)` = kernel K9 (`kernels.tick_refs`: measured
 FK, walking, queue ticks, Raibert footsteps, swing references) + the rolls
 and reference writes (torch copies) + the warm-start shift + one ProxDDP
 iteration.  `step_batched` advances B independent engines, every carry
-leaf with a leading scenario axis; `walking` is decided per scenario.  The
-tick makes no host synchronization, so a CUDA graph can capture it.
+leaf with a leading scenario axis; `walking` is decided per scenario.
+`step_donated` / `step_batched_donated` write the new carry into the
+passed carry's tensors, so a loop keeps one set of buffers (the JAX
+package's donated carry).  The tick makes no host synchronization, so a
+CUDA graph can capture it.
 
 As in the JAX tick, the AL penalty restarts at mu_init every tick and
 there is no divergence recovery (the host `MPC` keeps its own).
@@ -60,6 +63,17 @@ class MPCCarry(NamedTuple):
     velocity_base: torch.Tensor  # (6,)
     com0_z: torch.Tensor  # ()
     now: torch.Tensor  # () int32 state machine (WALKING/STANDING/MOTION)
+
+
+def _write_into(dst, src):
+    """Copy every leaf of `src` into the tensor of `dst` (same tree) and
+    return `dst`; a leaf that is already the destination is skipped."""
+    def write(d, s):
+        if s is not d:
+            d.copy_(s)
+        return d
+
+    return tree_map(write, dst, src)
 
 
 def _queue_from_list(times):
@@ -186,6 +200,23 @@ class FusedMPC:
         c, res = self._step(tree_map(lambda a: a[None], carry), x_meas[None])
         return tree_map(lambda a: a[0], c), Results(*(f[0] for f in res))
 
+    # Donated ticks: the carry is consumed.  The tick computes every new
+    # leaf before it writes one, and the measurement is copied first, so
+    # `step_donated(carry, carry.xs[1])` reads the carry it overwrites.
+    def step_batched_donated(self, carry: MPCCarry, x_meas):
+        """`step_batched` that writes the new carry into the passed
+        carry's tensors and returns them."""
+        new, res = self._step(carry, x_meas.clone())
+        return _write_into(carry, new), res
+
+    def step_donated(self, carry: MPCCarry, x_meas):
+        """`step` that writes the new carry into the passed carry's
+        tensors and returns them."""
+        cb = tree_map(lambda a: a[None], carry)
+        new, res = self._step(cb, x_meas[None].clone())
+        _write_into(cb, new)
+        return carry, Results(*(f[0] for f in res))
+
     # ------------------------------------------------------------------
     # Rollouts
     # ------------------------------------------------------------------
@@ -200,11 +231,13 @@ class FusedMPC:
 
     def self_rollout(self, carry: MPCCarry, n_ticks: int):
         """Closed loop on the solver's own one-step prediction xs[1] as the
-        next measurement.  Returns (carry, (us[0], xs[1], prim_res)) stacked
-        over the ticks."""
+        next measurement, through `step_donated` on a copy of `carry` (which
+        stays as it was).  Returns (carry after the last tick, (us[0],
+        xs[1], prim_res) stacked over the ticks)."""
+        carry = tree_map(torch.clone, carry)
         us0, xs1, prims = [], [], []
         for _ in range(n_ticks):
-            carry, res = self.step(carry, carry.xs[1])
+            carry, res = self.step_donated(carry, carry.xs[1])
             us0.append(res.us[0])
             xs1.append(res.xs[1])
             prims.append(res.prim_res)

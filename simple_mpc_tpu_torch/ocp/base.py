@@ -98,7 +98,7 @@ class OCPHandler:
     """
 
     def __init__(self, settings, model_handler: RobotModelHandler,
-                 device="cpu", dtype=torch.float64):
+                 device="cuda", dtype=torch.float64):
         self.settings = settings
         self.model_handler = model_handler
         self.device = torch.device(device)

@@ -78,7 +78,7 @@ class KinodynamicsOCP(OCPHandler):
     stage_params_type = KinoStageParams
     term_params_type = KinoTermParams
 
-    def __init__(self, settings, model_handler, device="cpu",
+    def __init__(self, settings, model_handler, device="cuda",
                  dtype=torch.float64):
         if isinstance(settings, dict):
             settings = KinodynamicsSettings.from_dict(settings)

@@ -12,7 +12,9 @@ One iteration:
     its forward tangents along the 18 dq, 18 dv and 24 du basis directions
     and the Gauss-Newton products;
   * K5 `kernels.term_linearize`: the terminal Jacobian;
-  * K3 `kernels.riccati_backward`: the serial Riccati pass;
+  * K3 `kernels.riccati_backward`: the serial Riccati pass, or with
+    `SolverSettings(parallel=True)` K6 `kernels.parallel_riccati_backward`,
+    the associative-scan pass of O(log T) depth (the B=1 latency path);
   * K4 `kernels.linear_rollout` for every step size, then the Lie integrate,
     K1 `kernels.stage_eval` on every candidate, the AL merit and an argmin
     per scenario;
@@ -69,6 +71,8 @@ class SolverSettings:
     # control scaling: the step is taken in u_hat = u / u_scale ("auto" reads
     # the OCP's u_scale); returned ks/Ks are in physical units
     u_scale: Any = None
+    # associative-scan Riccati backward (K6) in place of the serial pass (K3)
+    parallel: bool = False
 
 
 class Results(NamedTuple):
@@ -151,15 +155,16 @@ class ProxDDPSolver:
                 + 0.5 / mu * torch.sum(x0_gap * x0_gap, dim=-1))
 
     # ------------------------------------------------------------------
-    # Backward pass (K3) and candidates (K4)
+    # Backward pass (K3 or K6) and candidates (K4)
     # ------------------------------------------------------------------
     def _backward(self, lin, Vx_T, Vxx_T, reg):
         # with u scaling, Qu is the gradient wrt u_hat = u/s; the dual
         # residual is reported in physical units (|dL/du| = |Qu|/s) or the
         # BCL omega gate sees s-inflated values
         su = self._su(Vx_T)
-        return kernels.riccati_backward(lin, Vx_T, Vxx_T, reg,
-                                        dual_scale=None if su is None else 1.0 / su)
+        backward = (kernels.parallel_riccati_backward if self.settings.parallel
+                    else kernels.riccati_backward)
+        return backward(lin, Vx_T, Vxx_T, reg, dual_scale=None if su is None else 1.0 / su)
 
     def _candidates(self, xs, us, lin, ks, Ks, dx0, alphas):
         """Linear rollout (aligator RolloutType::LINEAR) for every alpha:

@@ -199,6 +199,68 @@ def test_self_rollout_and_rollout_stay_finite(trace):
     assert bool((prim < 1e-2).all())
 
 
+def _leaves(carry):
+    from simple_mpc_tpu_torch.ocp.base import tree_leaves
+
+    return tree_leaves(carry)
+
+
+@pytest.mark.parametrize("self_fed", [True, False])
+def test_step_donated_matches_step_and_reuses_the_carry(trace, self_fed):
+    """step_donated writes the tick into the passed carry's tensors and
+    equals step bit for bit, also when the measurement is a view of the
+    carry it overwrites (`step_donated(carry, carry.xs[1])`)."""
+    from simple_mpc_tpu_torch.ocp.base import tree_map
+
+    fused = trace["fused"]
+    ref = tree_map(torch.clone, trace["carry0"])
+    mine = tree_map(torch.clone, trace["carry0"])
+    x_ref = ref.xs[1] if self_fed else torch.as_tensor(trace["xs_meas"][1])
+    x_mine = mine.xs[1] if self_fed else x_ref.clone()
+    ptrs = [a.data_ptr() for a in _leaves(mine)]
+    c_ref, r_ref = fused.step(ref, x_ref)
+    c_don, r_don = fused.step_donated(mine, x_mine)
+    assert [a.data_ptr() for a in _leaves(c_don)] == ptrs
+    for a, b in zip(_leaves(c_don), _leaves(c_ref)):
+        assert torch.equal(a, b)
+    for a, b in zip(r_don, r_ref):
+        assert torch.equal(a, b)
+
+
+def test_step_batched_donated_matches_step_batched(trace):
+    from simple_mpc_tpu_torch.ocp.base import tree_map
+
+    fused = trace["fused"]
+    cb = fused.tile_carry(trace["carry0"], 2)
+    cb = cb._replace(xs=cb.xs + torch.tensor([0.0, 1e-3], dtype=torch.float64)[:, None, None])
+    mine = tree_map(torch.clone, cb)
+    ptrs = [a.data_ptr() for a in _leaves(mine)]
+    c_ref, r_ref = fused.step_batched(cb, cb.xs[:, 1])
+    c_don, r_don = fused.step_batched_donated(mine, mine.xs[:, 1])
+    assert [a.data_ptr() for a in _leaves(c_don)] == ptrs
+    for a, b in zip(_leaves(c_don), _leaves(c_ref)):
+        assert torch.equal(a, b)
+    assert torch.equal(r_don.us, r_ref.us)
+
+
+def test_self_rollout_leaves_the_carry_pristine(trace):
+    """self_rollout runs on a copy: the caller's carry is unchanged, and the
+    ticks equal step fed its own xs[1]."""
+    from simple_mpc_tpu_torch.ocp.base import tree_map
+
+    fused, carry = trace["fused"], trace["carry0"]
+    before = tree_map(torch.clone, carry)
+    c_end, (us0, xs1, prim) = fused.self_rollout(carry, 2)
+    for a, b in zip(_leaves(carry), _leaves(before)):
+        assert torch.equal(a, b)
+    c = before
+    for i in range(2):
+        c, res = fused.step(c, c.xs[1])
+        assert torch.equal(us0[i], res.us[0]) and torch.equal(prim[i], res.prim_res)
+    for a, b in zip(_leaves(c_end), _leaves(c)):
+        assert torch.equal(a, b)
+
+
 def test_switches_and_carry_round_trip(trace):
     from simple_mpc_tpu_torch.convert import carry_from_numpy, carry_to_numpy
     from simple_mpc_tpu_torch.mpc.mpc import STANDING, WALKING

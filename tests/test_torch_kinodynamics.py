@@ -36,7 +36,7 @@ def _close(a, b, tol=TOL):
 @pytest.fixture(scope="module")
 def pair():
     jocp, jmh, x0 = jconfigs.make_go2_kinodynamics(T)
-    tocp, tmh, _ = tconfigs.make_go2_kinodynamics(T)
+    tocp, tmh, _ = tconfigs.make_go2_kinodynamics(T, device="cpu")
     return jocp, jmh, tocp, tmh, x0
 
 
@@ -142,7 +142,7 @@ def test_terminal_and_state_derivative(pair):
 
 def test_terminal_dcm_constraint():
     jocp, jmh, x0 = jconfigs.make_go2_kinodynamics(4)
-    tocp, tmh, _ = tconfigs.make_go2_kinodynamics(4)
+    tocp, tmh, _ = tconfigs.make_go2_kinodynamics(4, device="cpu")
     jp = jocp.make_term_params(jnp.asarray(x0), True)
     tp = tocp.make_term_params(x0, True)
     assert tocp.n_term_eq == jocp.n_term_eq == 3
@@ -154,7 +154,7 @@ def test_terminal_dcm_constraint():
 def test_setters_and_roll(pair):
     jocp0, jmh, tocp0, tmh, x0 = pair
     jocp, _, _ = jconfigs.make_go2_kinodynamics(T)
-    tocp, _, _ = tconfigs.make_go2_kinodynamics(T)
+    tocp, _, _ = tconfigs.make_go2_kinodynamics(T, device="cpu")
     rng = np.random.default_rng(10)
     refs = rng.normal(size=(T, 4, 3))
     xr = _state(rng, jmh, 1)[0]
@@ -227,3 +227,17 @@ def test_cones():
                                   np.asarray(jcones.mask_ineq(rj, mask)))
     np.testing.assert_array_equal(_np(tcones.mask_eq(torch.as_tensor(v), mask[:, :3])),
                                   np.asarray(jcones.mask_eq(jnp.asarray(v), mask[:, :3])))
+
+
+def test_entry_points_default_to_the_card():
+    """The port's entry points build their problem on the card unless the
+    caller asks for the CPU (every CPU test passes device="cpu")."""
+    import inspect
+
+    from simple_mpc_tpu_torch.configs import make_go2_fused, make_go2_kinodynamics
+    from simple_mpc_tpu_torch.ocp.base import OCPHandler
+    from simple_mpc_tpu_torch.ocp.kinodynamics import KinodynamicsOCP
+
+    for fn in (make_go2_kinodynamics, make_go2_fused, KinodynamicsOCP.__init__,
+               OCPHandler.__init__):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn

@@ -48,7 +48,7 @@ def trace():
     from simple_mpc_tpu_torch.mpc import MPC, MPCSettings
 
     jocp, jmh, _ = jconfigs.make_go2_kinodynamics(T)
-    tocp, tmh, _ = tconfigs.make_go2_kinodynamics(T)
+    tocp, tmh, _ = tconfigs.make_go2_kinodynamics(T, device="cpu")
     jm = JMPC(JMPCSettings(support_force=jmh.mass * 9.81, **SETTINGS), jocp)
     tm = MPC(MPCSettings(support_force=tmh.mass * 9.81, **SETTINGS), tocp)
     out = [dict(j=(jm.xs, jm.us, jm.Ks), t=(tm.xs, tm.us, tm.Ks),

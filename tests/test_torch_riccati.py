@@ -1,12 +1,17 @@
 """PyTorch port vs JAX package: the linearization (K1/K2), the Riccati
-backward pass (K3) and the linear rollout (K4) of one ProxDDP iteration,
-Go2 kinodynamics T=8, two scenarios with distinct perturbed iterates, f64.
+backward passes (K3, and K6 of `parallel=True`) and the linear rollout (K4)
+of one ProxDDP iteration, Go2 kinodynamics T=8, two scenarios with
+distinct perturbed iterates, f64.
 
-The JAX side runs as the JAX tests run it (CPU, x64).  The K3/K4 twins take
-the JAX package's own linearization, carried across as numpy arrays, so
-each kernel's twin is held to its JAX counterpart alone.  Tolerance 1e-10
-relative to the largest entry: the Riccati pass solves 24x24 systems whose
-condition number amplifies float64 roundoff by a few decades.
+The JAX side runs as the JAX tests run it (CPU, x64).  The K3/K4/K6 twins
+take the JAX package's own linearization, carried across with
+`convert.lin_from_numpy`, so each kernel's twin is held to its JAX
+counterpart alone.  Tolerance 1e-10 relative to the largest entry for K3
+and K4 (the Riccati pass solves 24x24 systems whose condition number
+amplifies float64 roundoff by a few decades); 1e-9 for K6, whose scan
+composes in another tree than `lax.associative_scan` and solves the
+unscaled Quu + reg I, where Go2's 1e-5 joint-acceleration weights lie six
+decades below the force weights.
 
 `test_kernels_match_twins_on_cuda` holds the CUDA kernels to the twins on
 the card; it needs no JAX (run it there with
@@ -15,6 +20,8 @@ the card; it needs no JAX (run it there with
 import numpy as np
 import pytest
 import torch
+
+from simple_mpc_tpu_torch.testing import random_lq
 
 T = 8
 NB = 2
@@ -46,6 +53,7 @@ def case():
     import jax.numpy as jnp
 
     from simple_mpc_tpu import configs as jconfigs
+    from simple_mpc_tpu.solver.parallel_riccati import parallel_backward
     from simple_mpc_tpu.solver.proxddp import ProxDDPSolver as JSolver
     from simple_mpc_tpu.solver.proxddp import SolverSettings as JSettings
     from simple_mpc_tpu_torch import configs as tconfigs
@@ -54,7 +62,7 @@ def case():
     from simple_mpc_tpu_torch.solver.proxddp import ProxDDPSolver, SolverSettings
 
     jocp, jmh, x0 = jconfigs.make_go2_kinodynamics(T)
-    tocp, _, _ = tconfigs.make_go2_kinodynamics(T)
+    tocp, _, _ = tconfigs.make_go2_kinodynamics(T, device="cpu")
     js = JSolver(jocp, JSettings())
     ts = ProxDDPSolver(tocp, SolverSettings())
     prob = jocp.problem
@@ -66,6 +74,7 @@ def case():
     lin_j = jax.jit(lambda x, u, le, li: js._linearize_traj_soa(prob, x, u, le, li, MU))
     term_j = jax.jit(lambda x: js._linearize_term(x, prob.term_params, jnp.zeros(0), MU))
     back_j = jax.jit(lambda lin, vx, vxx: js._backward(lin, vx, vxx, 1e-9))
+    par_j = jax.jit(lambda lin, vx, vxx: parallel_backward(lin, vx, vxx, 1e-9))
     alphas = np.asarray(JSettings().alphas)
     cand_j = jax.jit(lambda x, u, lin, ks, Ks, dx0: jax.vmap(
         lambda a: js._candidate(x, u, lin, ks, Ks, dx0, a))(jnp.asarray(alphas)))
@@ -74,11 +83,14 @@ def case():
         lin = lin_j(xs[b], us[b], lam_eq[b], lam_in[b])
         vx, vxx = term_j(xs[b, -1])
         ks, Ks, dual = back_j(lin, vx, vxx)
+        ks_p, Ks_p, dual_p = par_j(lin, vx, vxx)
         dx0 = js.space.difference(jnp.asarray(xs[b, 0]), prob.x0)
         xs_c, us_c = cand_j(xs[b], us[b], lin, ks, Ks, dx0)
         ref.append(dict(lin={k: np.asarray(v) for k, v in lin.items()},
                         Vx=np.asarray(vx), Vxx=np.asarray(vxx), ks=np.asarray(ks),
                         Ks=np.asarray(Ks), dual=float(dual), dx0=np.asarray(dx0),
+                        ks_p=np.asarray(ks_p), Ks_p=np.asarray(Ks_p),
+                        dual_p=float(dual_p),
                         xs_c=np.asarray(xs_c), us_c=np.asarray(us_c)))
     stack = {k: np.stack([r[k] for r in ref]) for k in ref[0] if k != "lin"}
     stack["lin"] = {k: np.stack([r["lin"][k] for r in ref]) for k in ref[0]["lin"]}
@@ -116,6 +128,21 @@ def test_riccati_twin_matches_jax_backward(case):
     assert _rel(dual, r["dual"]) < TOL
 
 
+def test_parallel_twin_matches_jax_on_go2(case):
+    """K6's twin on the Go2 linearization (measured: ks 1.1e-13, Ks 2.6e-13,
+    dual 1.7e-14 relative; K6 and K3 differ by 1e-5 on these data, as they
+    regularize differently)."""
+    from simple_mpc_tpu_torch import kernels
+    from simple_mpc_tpu_torch.convert import lin_from_numpy
+
+    r, t = case["ref"], case["t"]
+    ks, Ks, dual = kernels.parallel_riccati_backward(
+        lin_from_numpy(r["lin"], "cpu"), t(r["Vx"]), t(r["Vxx"]), 1e-9)
+    assert _rel(ks, r["ks_p"]) < 1e-9
+    assert _rel(Ks, r["Ks_p"]) < 1e-9
+    assert _rel(dual, r["dual_p"]) < 1e-9
+
+
 def test_rollout_twin_matches_jax_candidate(case):
     r, t, ts = case["ref"], case["t"], case["ts"]
     lin = {k: t(v) for k, v in r["lin"].items()}
@@ -125,26 +152,10 @@ def test_rollout_twin_matches_jax_candidate(case):
     assert _rel(us_c, r["us_c"]) < TOL
 
 
-def _random_lq(nb, nT, nx, nu, dtype, device, seed=0):
-    """Riccati inputs of the main path's structure from a seed."""
-    g = np.random.default_rng(seed)
-    J = g.normal(size=(nb, nT, 80, nx + nu))
-    H = np.einsum("btri,btrj->btij", J, J)
-    q = g.normal(size=(nb, nT, nx + nu))
-    M = g.normal(size=(nb, nx, nx))
-    arrs = dict(A=np.eye(nx) + 0.05 * g.normal(size=(nb, nT, nx, nx)),
-                B=0.1 * g.normal(size=(nb, nT, nx, nu)),
-                d=0.01 * g.normal(size=(nb, nT, nx)), qx=q[..., :nx], qu=q[..., nx:],
-                Qxx=H[..., :nx, :nx], Quu=H[..., nx:, nx:], Qux=H[..., nx:, :nx])
-    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)  # noqa: E731
-    return ({k: t(v) for k, v in arrs.items()}, t(g.normal(size=(nb, nx))),
-            t(np.einsum("bij,bkj->bik", M, M)), t(g.normal(size=(nb, nx))))
-
-
 def test_twins_on_cpu_tensors_never_count_launches():
     from simple_mpc_tpu_torch import kernels
 
-    lin, Vx, Vxx, dx0 = _random_lq(2, 3, 36, 24, torch.float64, "cpu")
+    lin, Vx, Vxx, dx0 = random_lq(2, 3, 36, 24, torch.float64, "cpu")
     n3, n4 = kernels.riccati_backward.launches, kernels.linear_rollout.launches
     ks, Ks, dual = kernels.riccati_backward(lin, Vx, Vxx, 1e-9)
     alphas = torch.tensor([0.0, 1.0, 0.5], dtype=torch.float64)
@@ -162,7 +173,7 @@ def test_kernels_match_twins_on_cuda():
     from simple_mpc_tpu_torch import kernels
 
     for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
-        lin, Vx, Vxx, dx0 = _random_lq(4, 12, 36, 24, dtype, "cuda")
+        lin, Vx, Vxx, dx0 = random_lq(4, 12, 36, 24, dtype, "cuda")
         n3 = kernels.riccati_backward.launches
         ks, Ks, dual = kernels.riccati_backward(lin, Vx, Vxx, 1e-9)
         assert kernels.riccati_backward.launches == n3 + 1

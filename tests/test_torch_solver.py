@@ -51,7 +51,7 @@ def runs():
     from simple_mpc_tpu_torch.solver.proxddp import ProxDDPSolver, SolverSettings
 
     jocp, jmh, x0 = jconfigs.make_go2_kinodynamics(T)
-    tocp, _, _ = tconfigs.make_go2_kinodynamics(T)
+    tocp, _, _ = tconfigs.make_go2_kinodynamics(T, device="cpu")
     prob = jocp.problem
     rng = np.random.default_rng(21)
     xs = np.repeat(x0[None, None], NB, 0).repeat(T + 1, 1)
