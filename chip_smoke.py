@@ -15,7 +15,11 @@ Phases, each printing one line; any failure raises and exits non-zero:
                linear_rollout, K1 stage_eval on the candidates, and K9
                tick_refs on 128 fused-tick carries with perturbed
                measurements; times as CUDA-event medians (the slow twins of
-               K1+K2, K3 and K5 on 3 repetitions).
+               K1+K2, K3 and K5 on 3 repetitions).  Then the full-dynamics
+               kernels (K7 inside): fd_stage_linearize (u_scale None and
+               "auto"), fd_stage_eval and fd_dynamics, on a perturbed Go2
+               full-dynamics T=100, B=128 problem with all 68 inequality
+               rows, f32 (gated against the twin in f64) and f64.
   4. batched — 30 warm-started one-iteration solves of B=128 Go2 T=100
                problems in f32 (the bench configuration); feasibility gate
                max prim_res < 5e-4.
@@ -37,12 +41,25 @@ Phases, each printing one line; any failure raises and exits non-zero:
                `step` ticks (p50/p99) and a 20-tick `self_rollout` from the
                pristine carry, gated at max prim_res < 5e-3 and median
                < 5e-4 (the JAX bench's gate).
-Phases 4-8 drive the main path.  The kernels' launch counters are zeroed
+  9. fd_batched — Go2 full dynamics without the friction pyramids (a cut
+               of the configuration: at the standing posture no force inside
+               them holds the robot at rest), B=128, T=100, f32, the batched
+               recipe from the quasistatic warm start: last call's max
+               prim_res < 1e-3; solves/s.  Then 4 calls of the same recipe
+               with all 68 rows: finite, no divergence, prim printed.
+ 10. fd_mpc  — the host MPC on full dynamics (examples/go2_fulldynamics.py:
+               T=50 trot, pyramids cut as in 9), f32, 30 ticks: finite, no
+               divergence, stage-0 forces unilateral and within 35 % of
+               m g; tick p50/p99 and one tick's trace.  Then 4 ticks of the
+               same MPC with all 68 rows: finite, no divergence, prim and
+               stage-0 force sum printed.
+Phases 4-10 drive the main paths.  The kernels' launch counters are zeroed
 just before each of them (after the latency engine's set-up, whose first
 solve is serial) and read just after (a `<phase>_launches` line): each
 must have launched every kernel it runs (phase 7 the six of the serial
-tick; phase 8 the same with K6 in place of K3, and K3 never).  The kernel
-summary's `launches` is the sum over those five runs; the launches of
+tick; phase 8 the same with K6 in place of K3, and K3 never; phases 9-10
+the full-dynamics stage kernels and never the kinodynamics ones).  The kernel
+summary's `launches` is the sum over those seven runs; the launches of
 phase 3 are not counted.  Its `bound_ms` is the larger of the bytes each
 kernel moves (inputs read once, outputs written once, at the summary's
 shape) over 3.35 TB/s and its counted FLOPs over 67 TFLOP/s (H100 SXM,
@@ -52,7 +69,10 @@ count holds the combines a work-efficient scan needs, not the 3.0 times as
 many of its own Hillis-Steele schedule.  No single PyTorch call computes
 any of these functions (`library_ms` null).  The second-to-last lines are
 the kernel summary (JSON) and nvidia-smi's name/power limit; the last line
-is {"ok": true, "device": {...}}.
+is {"ok": true, "device": {...}}.  The full-dynamics kernels' bounds count
+the Gauss-Newton products and K7's factorizations and solves (once in
+primal and once along each tangent direction), not the kinematics, CRBA or
+bias torques.
 """
 import json
 import os
@@ -67,6 +87,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 T = 100
 B = 128
 ALPHAS = (0.0, 1.0, 0.5, 0.25, 0.1)
+# f32 full-dynamics kernels vs their twin in f64 (see phase_fd_kernels)
+F32_FD_TOL = 3e-4
+PYRAMID_CALLS = 4  # calls (ticks) of the fd phases' 68-row runs (prim printed, not gated)
 REPS = 20
 SLOW_REPS = 3  # the torch.func twins of K1+K2 and K5 and the f64 twin of K3
 # the kernels each path of the main path must launch, and must not
@@ -74,9 +97,16 @@ SOLVER_KERNELS = ("stage_linearize", "stage_eval", "riccati_backward", "linear_r
                   "term_linearize")
 LATENCY_KERNELS = ("stage_linearize", "stage_eval", "parallel_riccati_backward",
                    "linear_rollout", "term_linearize", "tick_refs")
+FD_SOLVER_KERNELS = ("fd_stage_linearize", "fd_stage_eval", "riccati_backward",
+                     "linear_rollout", "term_linearize")
 PATH_KERNELS = dict(batched=SOLVER_KERNELS, fixture=SOLVER_KERNELS, mpc=SOLVER_KERNELS,
-                    fused=SOLVER_KERNELS + ("tick_refs",), latency=LATENCY_KERNELS)
-PATH_ABSENT = dict(latency=("riccati_backward",))
+                    fused=SOLVER_KERNELS + ("tick_refs",), latency=LATENCY_KERNELS,
+                    fd_batched=FD_SOLVER_KERNELS,
+                    fd_mpc=FD_SOLVER_KERNELS + ("fd_dynamics",))
+PATH_ABSENT = dict(latency=("riccati_backward",),
+                   fd_batched=("stage_linearize", "stage_eval"),
+                   fd_mpc=("stage_linearize", "stage_eval"))
+FD_MPC_T = 50  # examples/go2_fulldynamics.py's horizon
 # H100 SXM peaks from NVIDIA's datasheet: FP32 outside the tensor
 # cores, and HBM
 F32_FLOPS = 67e12
@@ -409,8 +439,7 @@ def phase_kernels(device):
                                                               mu), slow)),
             riccati_backward=(
                 cuda_ms(lambda: kernels.riccati_backward(lin0, Vx, Vxx, reg), REPS),
-                cuda_ms(lambda: kernels.riccati_backward_plain(lin0, Vx, Vxx, reg),
-                        REPS if dtype == torch.float32 else slow)),
+                cuda_ms(lambda: kernels.riccati_backward_plain(lin0, Vx, Vxx, reg), slow)),
             linear_rollout=(cuda_ms(lambda: kernels.linear_rollout(*roll_args), REPS),
                             cuda_ms(lambda: kernels.linear_rollout_plain(*roll_args), REPS)),
             stage_eval=(cuda_ms(lambda: kernels.stage_eval(*eval_args), REPS),
@@ -457,6 +486,191 @@ def phase_kernels(device):
     return out
 
 
+def fd_case(device, dtype, seed):
+    """Go2 full-dynamics T=100 standing problem (all 68 inequality rows)
+    batched B times, with a perturbed warm start (states and torques) and
+    positive inequality multipliers, made from numpy with a fixed seed."""
+    from simple_mpc_tpu_torch.configs import make_go2_fulldynamics
+    from simple_mpc_tpu_torch.parallel import tile_problem
+
+    ocp, mh, x0 = make_go2_fulldynamics(T, device=device, dtype=dtype)
+    rng = np.random.default_rng(seed)
+    xs = np.repeat(x0[None, None], B, 0).repeat(T + 1, 1)
+    xs = xs + 0.01 * rng.normal(size=xs.shape)
+    xs[..., 3:7] /= np.linalg.norm(xs[..., 3:7], axis=-1, keepdims=True)
+    us = rng.normal(size=(B, T, ocp.nu))
+    lam_in = 0.1 * np.abs(rng.normal(size=(B, T, ocp.n_in)))
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
+    return ocp, tile_problem(ocp.problem, B), t(xs), t(us), t(lam_in)
+
+
+def standing_torques(ocp, x0):
+    """Joint torques that hold the configuration x0 at rest on all its feet
+    (numpy, float64), the quasistatic warm start of the JAX package's
+    full-dynamics fixture (`tools/make_parity_fixtures.py`
+    `_quasistatic_torques`): with v = 0 and ddq = 0 the dynamics
+    M ddq = [0; tau] - b + Jc^T f leave Jc^T f = b - [0; tau]; the base rows
+    fix the contact forces nearest the force references f_ref, the joint
+    rows then give tau."""
+    from simple_mpc_tpu_torch.ops import soa, soa_dyn
+
+    m = ocp.model
+    q = torch.as_tensor(np.asarray(x0[: ocp.nq], np.float64))[:, None]
+    v = torch.zeros((m.nv, 1), dtype=torch.float64)
+    oR, op = soa.fk_world(m, q)
+    Sw = soa.world_axes(m, oR, op)
+    b = soa_dyn.nle_world(m, oR, op, Sw, soa.body_velocities(m, Sw, v), v)[:, 0]
+    J = soa_dyn.contact_jacobians(m, oR, op, Sw, ocp.feet_fids, 3)[0][..., 0]  # (3 nk, nv)
+    f_ref = ocp.problem.stage_params.f_ref[0].reshape(-1).to("cpu", torch.float64)
+    Jb = J[:, :6].T
+    f = f_ref + torch.linalg.pinv(Jb) @ (b[:6] - Jb @ f_ref)
+    return (b[6:] - J[:, 6:].T @ f).numpy()
+
+
+def k7_flops(nv, nc):
+    """Counted FLOPs of K7's factorizations and solves on one lane: the
+    Cholesky of M, the (nc + 1)-column solve, the Delassus product (lower
+    triangle), its Cholesky and solve, ddq.  The kinematics, the CRBA and the
+    bias torques are not counted."""
+    return (nv ** 3 / 3 + 2 * nv * nv * (nc + 1) + nc * (nc + 1) * nv + nc ** 3 / 3
+            + 2 * nc * nc + 2 * nv * nc)
+
+
+def phase_fd_kernels(device):
+    """The full-dynamics kernels against their twins on the card, at the
+    full-dynamics main path's shapes (Go2 T=100, B=128, perturbed standing
+    problem), f32 and f64: fd_stage_linearize with u_scale None and "auto",
+    fd_stage_eval on the candidates of one step, fd_dynamics on the B*T
+    lanes and on the one lane `MPC.get_contact_forces` gives it.  Gates, as
+    max|a - b| / max|b|: in f64 the kernel within 1e-10 of the twin; in f32
+    the kernel within F32_FD_TOL = 3e-4 of the twin evaluated in f64 on the
+    same (f32-rounded) inputs.  The f32 linearization loses ~1e-4 of A
+    through the two KKT solves whoever evaluates it: on this data (seed 5;
+    NVIDIA H100 80GB HBM3, 700 W) the kernel reads 1.2e-4 to 1.34e-4 from
+    the f64 twin and the f32 twin 2.94e-4, so a fixed 1e-4 between two f32
+    evaluations measures the function's conditioning, not the kernel.
+    3e-4 leaves the kernel twice its readings and is about the plain f32
+    twin's own distance; the
+    f32 twin's distance and the kernel-vs-f32-twin distance are printed
+    beside it."""
+    from simple_mpc_tpu_torch import kernels
+    from simple_mpc_tpu_torch.ocp.base import tree_map
+    from simple_mpc_tpu_torch.solver.proxddp import ProxDDPSolver, SolverSettings
+
+    out = {}
+    for dtype, tol in ((torch.float32, F32_FD_TOL), (torch.float64, 1e-10)):
+        t0 = time.perf_counter()
+        ocp, probs, xs, us, lam_in = fd_case(device, dtype, seed=5)
+        eps = torch.finfo(dtype).eps
+        mu = torch.full((B,), max(1e-6, eps ** 0.5), dtype=dtype, device=device)
+        lam_eq = torch.zeros((B, T, 0), dtype=dtype, device=device)
+        lam_term = torch.zeros((B, ocp.n_term_eq), dtype=dtype, device=device)
+        sp = tree_map(torch.Tensor.contiguous, probs.stage_params)
+        tp = tree_map(torch.Tensor.contiguous, probs.term_params)
+        alphas = torch.as_tensor(ALPHAS, dtype=dtype, device=device)
+        errs, abs_err, times, vs64 = {}, {}, {}, {}
+        f32 = dtype == torch.float32
+
+        def as64(args):
+            """The arguments with every floating tensor (in param tuples too)
+            in f64."""
+            def leaf(a):
+                return a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+            return tuple(tree_map(leaf, a) for a in args)
+
+        def compare(name, got, want, want64=None):
+            """Kernel `got` against its twin `want`; in f32 also against the
+            twin in f64 on the same inputs, `want64`."""
+            keep = [i for i, b in enumerate(want) if b.numel()]
+            e = [rel_err(got[i], want[i]) for i in keep]
+            check(all(torch.isfinite(got[i]).all() for i in keep), f"{name} {dtype}: non-finite")
+            if want64 is None:
+                check(all(np.isfinite(e)) and max(e) <= tol,
+                      f"{name} {dtype}: rel err {max(e):.3e} > {tol}")
+            else:
+                e_twin = max(rel_err(want[i], want64[i]) for i in keep)
+                e_kern = max(rel_err(got[i], want64[i]) for i in keep)
+                check(np.isfinite(e_kern) and e_kern <= F32_FD_TOL,
+                      f"{name} {dtype}: {e_kern:.3e} from the f64 twin > {F32_FD_TOL:.1e}"
+                      f" (f32 twin: {e_twin:.3e})")
+                old = vs64.get(name, (0.0, 0.0))
+                vs64[name] = (max(old[0], e_kern), max(old[1], e_twin))
+            errs[name] = max([errs.get(name, 0.0)] + e)
+            abs_err[name] = max([abs_err.get(name, 0.0)] + [
+                float((got[i].double() - want[i].double()).abs().max()) for i in keep])
+
+        # (a) K7 + K1 + K2, without and with control scaling
+        for su in (None, "auto"):
+            solver = ProxDDPSolver(ocp, SolverSettings(mu_init=1e-6, alphas=ALPHAS,
+                                                       u_scale=su))
+            lin_args = (solver, sp, xs, us, lam_eq, lam_in, mu)
+            lin = kernels.fd_stage_linearize(*lin_args)
+            lin0 = kernels._linearize_traj_plain(*lin_args)
+            lin64 = (kernels._linearize_traj_plain(*as64(lin_args)) if f32
+                     else None)
+            compare("fd_stage_linearize", [lin[k] for k in kernels.LIN_KEYS],
+                    [lin0[k] for k in kernels.LIN_KEYS],
+                    lin64 and [lin64[k] for k in kernels.LIN_KEYS])
+        # (b) K7 + K1 on the candidates of the twins' step (u_scale "auto")
+        Vx, Vxx = kernels._linearize_term_plain(solver, xs[:, -1], tp, lam_term, mu)
+        reg = max(solver.settings.reg_init, 50 * eps)
+        ks0, Ks0, _ = kernels.riccati_backward_plain(lin0, Vx, Vxx, reg)
+        dx0 = solver.space.difference(xs[:, 0], probs.x0)
+        xs_c, us_c = solver._candidates(xs, us, lin0, ks0, Ks0, dx0, alphas)
+        eval_args = (solver, sp, xs_c, us_c, lam_eq, lam_in, mu)
+        compare("fd_stage_eval", kernels.fd_stage_eval(*eval_args),
+                kernels._eval_traj_plain(*eval_args),
+                kernels._eval_traj_plain(*as64(eval_args)) if f32 else None)
+        # (c) K7 alone: every stage's lane, and the one lane of the MPC's
+        # get_contact_forces
+        x_all = xs[:, :-1].reshape(B * T, -1).contiguous()
+        u_all = us.reshape(B * T, -1).contiguous()
+        p_all = tree_map(lambda a: a.reshape((B * T,) + a.shape[2:]).contiguous(), sp)
+        dyn_args = (ocp, x_all, u_all, p_all)
+        one = (ocp, x_all[:1], u_all[:1], tree_map(lambda a: a[:1], p_all))
+        for args in (dyn_args, one):
+            compare("fd_dynamics", kernels.fd_dynamics(*args), kernels.fd_dynamics_plain(*args),
+                    kernels.fd_dynamics_plain(*as64(args)) if f32 else None)
+
+        slow = SLOW_REPS
+        times = dict(
+            fd_stage_linearize=(cuda_ms(lambda: kernels.fd_stage_linearize(*lin_args), REPS),
+                                cuda_ms(lambda: kernels._linearize_traj_plain(*lin_args),
+                                        slow)),
+            fd_stage_eval=(cuda_ms(lambda: kernels.fd_stage_eval(*eval_args), REPS),
+                           cuda_ms(lambda: kernels._eval_traj_plain(*eval_args), slow)),
+            fd_dynamics=(cuda_ms(lambda: kernels.fd_dynamics(*one), REPS),
+                         cuda_ms(lambda: kernels.fd_dynamics_plain(*one), slow)),
+        )
+        all_lanes = (cuda_ms(lambda: kernels.fd_dynamics(*dyn_args), REPS),
+                     cuda_ms(lambda: kernels.fd_dynamics_plain(*dyn_args), slow))
+        nx, nu, nv, nc = solver.space.ndx, ocp.nu, ocp.nv, 3 * ocp.nk
+        n_rows = ocp._const(xs)["w"].shape[0] + ocp.n_eq + ocp.n_in
+        k7 = k7_flops(nv, nc)
+        na = alphas.shape[0]
+        # per scenario (fd_dynamics: per lane): (counted FLOPs, bytes read and
+        # written); the linearization counts the Gauss-Newton products and
+        # K7 once in primal and once along each of its nx + nu directions
+        per = dict(
+            fd_stage_linearize=(T * (2 * n_rows * (nx * nx + nu * nu + nu * nx + nx + nu)
+                                     + (1 + nx + nu) * k7),
+                                nbytes((sp, xs, us, lam_eq, lam_in, mu, lin)) / B),
+            fd_stage_eval=(na * T * k7, nbytes((sp, xs_c, us_c, lam_eq, lam_in, mu,
+                                                kernels.fd_stage_eval(*eval_args))) / B),
+            fd_dynamics=(k7, nbytes((one[1:], kernels.fd_dynamics(*one)))),
+        )
+        bounds = {k: roofline(f * (1 if k == "fd_dynamics" else B),
+                              m * (1 if k == "fd_dynamics" else B))
+                  for k, (f, m) in per.items()}
+        name = str(dtype).replace("torch.", "")
+        out[name] = dict(errs=errs, abs_err=abs_err, times=times, bounds=bounds)
+        phase(f"fd_kernels_{name}", t0, B=B, T=T, tol=tol, rel_err=errs, max_abs_err=abs_err,
+              kernel_and_twin_vs_f64_twin=vs64 or None,
+              ms_kernel_vs_plain=times, fd_dynamics_all_lanes_ms=all_lanes,
+              bound_ms=bounds if dtype == torch.float32 else None)
+    return out
+
+
 def phase_batched(device):
     """Bench configuration: B=128 one-iteration warm-started solves, f32."""
     from simple_mpc_tpu_torch.configs import make_go2_kinodynamics
@@ -492,6 +706,154 @@ def phase_batched(device):
     check(s["max_prim"] < 5e-4, f"batched solve lost feasibility: max prim {s['max_prim']:.3e}")
     phase("batched", t0, B=B, T=T, calls=calls, solves_per_s=B * calls / wall,
           ms_per_call=1e3 * wall / calls, **s)
+
+
+def phase_fd_batched(device):
+    """Full dynamics, the recipe of phase_batched: B=128 tiled Go2 T=100
+    standing problems in f32, warm-started from the standing state and the
+    standing torques, mu_init 1e-6, two warm-up calls, then 30
+    one-iteration calls each fed the last result.  Gates: finite, no
+    divergence, the last call's max prim_res < 1e-3
+    (tests/test_fulldynamics_solver.py:83).
+
+    The warm start is the quasistatic one, not the zero torque of the
+    reference control: from zero torque the robot's collapse makes the
+    value Hessian grow to ~4e6 over the 100 stages, and in f32 the
+    Jacobi-scaled Quu of the serial Riccati pass turns indefinite at stage
+    9 (NaN in the first call, twin and kernel alike, and JAX's own f32 pass
+    on the same linearization: test_torch_fulldynamics.py::
+    test_f32_serial_riccati_from_zero_torque_fails_as_jax_does).
+
+    A cut of the configuration: the gated solve runs without the 20
+    friction-pyramid rows (48 inequality rows).  The pyramids bound the
+    force in the LOCAL foot frame, which the Go2 standing posture tilts 0.8
+    rad, beyond the pyramid's half-angle atan(0.8), so no admissible force
+    set holds the robot at rest there
+    (tests/test_torch_fulldynamics.py::test_pyramids_exclude_rest_at_the_standing_posture),
+    and on this recipe the JAX package's solver stalls as the port does
+    (test_pyramid_standing_problem_stalls_in_jax_as_in_the_port, slow).
+    After the gated calls, the 68-row problem runs PYRAMID_CALLS calls of
+    the same recipe through the same kernels: gated finite and not
+    diverged, its max prim printed."""
+    from simple_mpc_tpu_torch.configs import make_go2_fulldynamics
+    from simple_mpc_tpu_torch.parallel import BatchedSolver, tile_problem
+    from simple_mpc_tpu_torch.solver.proxddp import ProxDDPSolver, SolverSettings
+
+    t0 = time.perf_counter()
+    dtype = torch.float32
+
+    def start(force_cone):
+        ocp, _, x0 = make_go2_fulldynamics(T, device=device, dtype=dtype,
+                                           force_cone=force_cone)
+        xs = ocp._tensor(x0)[None, None].expand(B, T + 1, -1).clone()
+        us = ocp._tensor(standing_torques(ocp, x0))[None, None].expand(B, T, -1).clone()
+        lams = (torch.zeros((B, T, ocp.n_eq), dtype=dtype, device=device),
+                torch.zeros((B, T, ocp.n_in), dtype=dtype, device=device),
+                torch.zeros((B, ocp.n_term_eq), dtype=dtype, device=device))
+        bs = BatchedSolver(ProxDDPSolver(ocp, SolverSettings(mu_init=1e-6, max_iters=1,
+                                                             alphas=ALPHAS)))
+        return ocp, bs, tile_problem(ocp.problem, B), xs, us, lams
+
+    ocp, bs, probs, xs, us, lams = start(force_cone=False)
+    prims = []
+    for _ in range(2):  # warm-up
+        res = bs.run(probs, xs, us, lams)
+        xs, us, lams = res.xs, res.us, (res.lam_eq, res.lam_in, res.lam_term)
+        prims.append(res.prim_res.max())
+    torch.cuda.synchronize()
+    calls = 30
+    t1 = time.perf_counter()
+    for _ in range(calls):
+        res = bs.run(probs, xs, us, lams)
+        xs, us, lams = res.xs, res.us, (res.lam_eq, res.lam_in, res.lam_term)
+        prims.append(res.prim_res.max())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    s = {k: float(v) for k, v in bs.summary(res).items()}
+    check(torch.isfinite(res.xs).all() and torch.isfinite(res.us).all()
+          and torch.isfinite(res.Ks).all(), "fd batched solve: non-finite iterate")
+    check(s["any_diverged"] == 0, "fd batched solve: a scenario diverged")
+    check(s["max_prim"] < 1e-3, f"fd batched solve: last max prim {s['max_prim']:.3e} >= 1e-3")
+
+    # the 68-row configuration, pyramids on, through the same path
+    ocp, bs68, probs, xs, us, lams = start(force_cone=True)
+    prims68 = []
+    for _ in range(PYRAMID_CALLS):
+        res68 = bs68.run(probs, xs, us, lams)
+        xs, us, lams = res68.xs, res68.us, (res68.lam_eq, res68.lam_in, res68.lam_term)
+        prims68.append(float(res68.prim_res.max()))
+    check(ocp.n_in == 68, f"fd batched, pyramids on: {ocp.n_in} inequality rows")
+    check(torch.isfinite(res68.xs).all() and torch.isfinite(res68.us).all()
+          and torch.isfinite(res68.Ks).all(), "fd batched, pyramids on: non-finite iterate")
+    check(not bool(res68.diverged.any()), "fd batched, pyramids on: a scenario diverged")
+    phase("fd_batched", t0, B=B, T=T, calls=calls, solves_per_s=B * calls / wall,
+          ms_per_call=1e3 * wall / calls, max_prim_per_call=[float(p) for p in prims], **s,
+          pyramids_on=dict(n_in=ocp.n_in, calls=PYRAMID_CALLS, max_prim_per_call=prims68))
+
+
+def phase_fd_mpc(device):
+    """The host MPC on full dynamics (examples/go2_fulldynamics.py:20-34:
+    T=50, trot 10/30/10/30 at 0.2 m/s) without the friction pyramids (a
+    cut of the configuration, see phase_fd_batched), f32, first solve cut
+    to 20 iterations: 30 ticks fed their own planned next state, then 5
+    more under the profiler.  Gates: finite plans, no divergence, and on
+    every gated tick the stage-0 contact forces (MPC.get_contact_forces(0),
+    through fd_dynamics) unilateral and summing to within 35 % of m g
+    (tests/test_fulldynamics_solver.py:102-103).  Then the same MPC with
+    all 68 rows, PYRAMID_CALLS ticks: gated finite and not diverged, each
+    tick's prim and stage-0 force sum printed."""
+    from simple_mpc_tpu_torch.configs import make_go2_fulldynamics
+    from simple_mpc_tpu_torch.mpc import MPC, MPCSettings
+
+    def walking_mpc(force_cone):
+        ocp, mh, _ = make_go2_fulldynamics(FD_MPC_T, device=device, dtype=torch.float32,
+                                           force_cone=force_cone)
+        mpc = MPC(MPCSettings(support_force=mh.mass * 9.81, TOL=1e-4, mu_init=1e-8,
+                              max_iters=1, swing_apex=0.05, T_fly=30, T_contact=10,
+                              timestep=0.01, init_max_iters=20), ocp)
+        check(not mpc.diverged, f"fd MPC ({ocp.n_in} rows): initial solve diverged")
+        feet = mh.feet_names
+        ds = {f: True for f in feet}
+        pair_a = {f: f in ("FL_foot", "RR_foot") for f in feet}
+        pair_b = {f: f in ("FR_foot", "RL_foot") for f in feet}
+        mpc.generate_cycle_horizon([ds] * 10 + [pair_a] * 30 + [ds] * 10 + [pair_b] * 30)
+        mpc.switch_to_walk(np.array([0.2, 0, 0, 0, 0, 0]))
+        return mpc, mh.mass * 9.81
+
+    def tick(mpc):
+        res = mpc.iterate(mpc.xs[1])
+        check(not mpc.diverged, "fd MPC: a tick diverged")
+        check(bool(torch.isfinite(res.xs).all() and torch.isfinite(res.us).all()
+                   and torch.isfinite(res.Ks).all()), "fd MPC: non-finite plan")
+        return float(res.prim_res), mpc.get_contact_forces(0).double().cpu().numpy()
+
+    t0 = time.perf_counter()
+    mpc, mg = walking_mpc(force_cone=False)
+    setup = time.perf_counter() - t0
+    ticks, lat, prims, fz = 30, [], [], []
+    for _ in range(ticks):
+        t1 = time.perf_counter()
+        prim, f = tick(mpc)
+        lat.append(time.perf_counter() - t1)
+        check(bool(np.isfinite(f).all()) and f[:, 2].min() > -1e-6,
+              f"fd MPC: stage-0 forces not unilateral: {f[:, 2]}")
+        check(abs(f[:, 2].sum() - mg) < 0.35 * mg,
+              f"fd MPC: stage-0 forces carry {f[:, 2].sum():.2f} N of m g = {mg:.2f} N")
+        prims.append(prim)
+        fz.append(float(f[:, 2].sum() / mg))
+    trace = trace_calls(lambda: mpc.iterate(mpc.xs[1]))
+    lat_ms = 1e3 * np.asarray(lat)
+
+    # the 68-row configuration, pyramids on
+    mpc68, _ = walking_mpc(force_cone=True)
+    on = [tick(mpc68) for _ in range(PYRAMID_CALLS)]
+    phase("fd_mpc", t0, T=FD_MPC_T, ticks=ticks, setup_s=setup,
+          tick_p50_ms=float(np.percentile(lat_ms, 50)),
+          tick_p99_ms=float(np.percentile(lat_ms, 99)), max_prim=float(max(prims)),
+          fz_sum_over_mg=[min(fz), max(fz)], tick_trace=trace,
+          pyramids_on=dict(n_in=mpc68.ocp_handler.n_in, ticks=PYRAMID_CALLS,
+                           prim_per_tick=[p for p, _ in on],
+                           fz_sum_over_mg_per_tick=[float(f[:, 2].sum() / mg) for _, f in on]))
 
 
 def phase_fixture(device):
@@ -684,7 +1046,9 @@ def drive_main_path(device):
     launches = dict.fromkeys((k.__name__ for k in kernels.KERNELS), 0)
     for path, run, setup in (("batched", phase_batched, None), ("fixture", phase_fixture, None),
                              ("mpc", phase_mpc, None), ("fused", phase_fused, None),
-                             ("latency", phase_latency, latency_setup)):
+                             ("latency", phase_latency, latency_setup),
+                             ("fd_batched", phase_fd_batched, None),
+                             ("fd_mpc", phase_fd_mpc, None)):
         args = setup(device) if setup else ()
         kernels.reset_launches()
         run(device, *args)
@@ -723,6 +1087,7 @@ def main():
         info["path"], ROOT), ptxas=ptxas)
 
     kres = phase_kernels(device)
+    fdres = phase_fd_kernels(device)
     launches = drive_main_path(device)
 
     replaces = dict(
@@ -734,15 +1099,21 @@ def main():
         linear_rollout=("rollout.cu", "simple_mpc_tpu/solver/proxddp.py:458"),
         term_linearize=("linearize.cu", "simple_mpc_tpu/solver/proxddp.py:352"),
         tick_refs=("tick.cu", "simple_mpc_tpu/mpc/fused.py:175"),
+        fd_stage_linearize=("fulldyn.cu", "simple_mpc_tpu/solver/proxddp.py:271"),
+        fd_stage_eval=("fulldyn.cu", "simple_mpc_tpu/solver/proxddp.py:183"),
+        fd_dynamics=("fulldyn.cu", "simple_mpc_tpu/ops/soa_dyn.py:199"),
     )
-    f32 = kres["float32"]
+    f32 = {k: {n: {**kres["float32"][n], **fdres["float32"][n]}[k] for n in
+               ("abs_err", "times", "bounds")} for k in replaces}
+    shape = dict(parallel_riccati_backward=(1, T), fd_dynamics=(1, 1))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"simple_mpc_tpu_torch/csrc/{src}",
          "replaces": rep, "launches": launches[name],
-         "max_abs_err": f32["abs_err"][name], "ms": f32["times"][name][0],
-         "plain_ms": f32["times"][name][1], "bound_ms": f32["bounds"][name][0],
-         "bound_by": f32["bounds"][name][1], "library_ms": None,
-         "B": 1 if name == "parallel_riccati_backward" else B, "T": T, "dtype": "float32"}
+         "max_abs_err": f32[name]["abs_err"], "ms": f32[name]["times"][0],
+         "plain_ms": f32[name]["times"][1], "bound_ms": f32[name]["bounds"][0],
+         "bound_by": f32[name]["bounds"][1], "library_ms": None,
+         "B": shape.get(name, (B, T))[0], "T": shape.get(name, (B, T))[1],
+         "dtype": "float32"}
         for name, (src, rep) in replaces.items()]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

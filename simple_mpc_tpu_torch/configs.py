@@ -1,8 +1,9 @@
 """Canonical robot + OCP configurations mirroring the reference examples.
 
-Port of the Go2 kinodynamics entries of `simple_mpc_tpu.configs` (the
-settings dictionaries of examples/go2_kinodynamics.py), and the fused-tick
-engines of the JAX package's bench (`bench.py` `_make_fused`).
+Port of the Go2 kinodynamics and full-dynamics entries of
+`simple_mpc_tpu.configs` (the settings dictionaries of
+examples/go2_kinodynamics.py and examples/go2_fulldynamics.py), and the
+fused-tick engines of the JAX package's bench (`bench.py` `_make_fused`).
 """
 from __future__ import annotations
 
@@ -48,6 +49,40 @@ def make_go2_kinodynamics(T: int = 100, device="cuda", dtype=torch.float64):
 
     mh = go2_handler()
     ocp = KinodynamicsOCP(go2_kinodynamics_config(mh), mh, device, dtype)
+    x0 = np.asarray(mh.reference_state)
+    ocp.create_problem(x0, T, 3, -9.81, False)
+    return ocp, mh, x0
+
+
+def go2_fulldynamics_config(mh: RobotModelHandler, force_cone=True) -> dict:
+    """examples/go2_fulldynamics.py settings: 78 cost rows, 68 inequality
+    rows (24 torque box, 24 joint box, 20 friction pyramid)."""
+    model = mh.model
+    nv = model.nv
+    w_x = np.array([0, 0, 10, 10, 10, 0] + [1, 1, 1] * 4
+                   + [10, 10, 10, 10, 10, 10] + [0.1, 0.1, 0.1] * 4)
+    return dict(
+        timestep=0.01, w_x=w_x, w_u=np.ones(nv - 6) * 1e-4,
+        w_cent=np.concatenate([np.zeros(3), [0.1, 0.1, 0.1]]),
+        w_forces=np.ones(3) * 1e-4, w_frame=np.ones(3) * 1000.0,
+        gravity=np.array([0, 0, -9.81]), force_size=3,
+        Kp_correction=np.zeros(3), Kd_correction=np.zeros(3),
+        umin=-model.effort_limit[6:], umax=model.effort_limit[6:],
+        qmin=model.lower_limit[7:], qmax=model.upper_limit[7:],
+        mu=0.8, Lfoot=0.01, Wfoot=0.01,
+        torque_limits=True, kinematics_limits=True,
+        force_cone=force_cone, land_cstr=False,
+    )
+
+
+def make_go2_fulldynamics(T: int = 100, device="cuda", dtype=torch.float64,
+                          force_cone=True):
+    """Go2 full dynamics (joint torques, rigid point contacts), horizon T,
+    with its problem built on `device` in `dtype`."""
+    from .ocp.fulldynamics import FullDynamicsOCP
+
+    mh = go2_handler()
+    ocp = FullDynamicsOCP(go2_fulldynamics_config(mh, force_cone), mh, device, dtype)
     x0 = np.asarray(mh.reference_state)
     ocp.create_problem(x0, T, 3, -9.81, False)
     return ocp, mh, x0

@@ -34,7 +34,9 @@ def problem_from_numpy(ocp, stage_params, term_params, x0, device,
                        dtype=torch.float64) -> Problem:
     """The port's Problem for `ocp` from the JAX package's stage and
     terminal parameter NamedTuples (any objects with the same field names
-    whose leaves convert with numpy.asarray) and x0.  Leading batch axes are
+    whose leaves convert with numpy.asarray) and x0: `KinoStageParams` /
+    `KinoTermParams` or `FullStageParams` / `FullTermParams`, as the OCP's
+    `stage_params_type` and `term_params_type` say.  Leading batch axes are
     kept as they are."""
     return Problem(x0=_tensor(x0, device, dtype),
                    stage_params=_params(ocp.stage_params_type, stage_params, device, dtype),

@@ -59,6 +59,12 @@ struct Dims {
   int o_fR, o_fp;  // selected frames, in frame_parent's order
   int o_w, o_wterm, o_g, o_qmin, o_qmax, o_cone;
   int o_scalars;  // total mass, OCP mass, timestep, friction-cone epsilon
+  // full dynamics (fulldyn.cuh): torque box, Baumgarte rows (kp used only
+  // when kp_on, as the JAX package skips the position term for zero gains),
+  // rotational inertias about the body CoMs, the model's gravity, the
+  // proximal term of the Delassus diagonal
+  int torque_limits, kp_on;
+  int o_umin, o_umax, o_kp, o_kd, o_Icom, o_grav, o_prox;
 };
 
 // ---------------------------------------------------------------------------
@@ -732,6 +738,7 @@ struct StageParams {
   const F* foot_ref_p;  // (nk, 3)
   const F* x_ref;       // (nx,)
   const F* u_ref;       // (nu,)
+  const F* f_ref;       // (nk, 3), read by the full-dynamics stage only
   const F* land;        // (nk,)
 };
 

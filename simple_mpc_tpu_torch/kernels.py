@@ -6,6 +6,11 @@ K1+K2 `stage_linearize` (csrc/linearize.cu) replaces
 `_stage_bundle_soa` and `ocp/kinodynamics.py` `stage_eval_soa`.
 K1 `stage_eval` (csrc/linearize.cu) replaces the candidate evaluation of
 `ProxDDPSolver._eval_traj`.
+The full-dynamics stage has kernels of its own (csrc/fulldyn.cu, with K7,
+the constrained dynamics of `simple_mpc_tpu/ops/soa_dyn.py`, in
+csrc/fulldyn.cuh): `fd_stage_linearize` (K7 + K1 + K2), `fd_stage_eval`
+(K7 + K1 on the candidates) and `fd_dynamics` (K7 alone, for
+`FullDynamicsOCP.get_contact_forces` / `state_derivative`).
 K3 `riccati_backward` (csrc/riccati.cu) replaces `ProxDDPSolver._backward`
 (the serial `lax.scan` step with `ops/soa_dyn.py`
 chol_unrolled/chol_solve_unrolled).
@@ -51,14 +56,16 @@ from .ocp.base import tree_map
 from .ocp.cones import FRICTION_EPS
 from .ops import soa
 from .ops import world as _world
+from .ops import soa_dyn
 from .ops.soa_dyn import chol_solve_unrolled, chol_unrolled
 from .solver.parallel_riccati import parallel_backward as parallel_riccati_backward_plain
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("riccati.cu", "parallel_riccati.cu", "rollout.cu", "linearize.cu", "tick.cu")
-HEADERS = ("stage.cuh",)
+SOURCES = ("riccati.cu", "parallel_riccati.cu", "rollout.cu", "linearize.cu", "fulldyn.cu",
+           "tick.cu")
+HEADERS = ("stage.cuh", "fulldyn.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -130,6 +137,9 @@ def _library() -> ctypes.CDLL:
             linear_rollout=[P] * 7 + [I] * 5 + [P] * 3,
             stage_linearize=[P] * 13 + [I] * 2 + [P] * 9,
             stage_eval=[P] * 12 + [I] * 3 + [P] * 5,
+            fd_stage_linearize=[P] * 14 + [I] * 2 + [P] * 9,
+            fd_stage_eval=[P] * 13 + [I] * 3 + [P] * 5,
+            fd_dynamics=[P] * 6 + [I] + [P] * 3,
             term_linearize=[P] * 7 + [I] + [P] * 3,
             tick_refs=[P] * 12 + [I] * 6 + [D, D] + [P] * 8,
         )
@@ -179,13 +189,13 @@ def _stream(device) -> int:
 
 def _lanes(x):
     """(B, T, n...) -> (n..., B*T): scenarios and stages into the lanes."""
-    return x.reshape((-1,) + tuple(x.shape[2:])).movedim(0, -1)
+    return x.reshape((x.shape[0] * x.shape[1],) + tuple(x.shape[2:])).movedim(0, -1)
 
 
 def _unlanes(X, nb):
     """(n..., B*T) -> (B, T, n...)."""
     Y = X.movedim(-1, 0)
-    return Y.reshape((nb, -1) + tuple(Y.shape[1:]))
+    return Y.reshape((nb, Y.shape[0] // nb) + tuple(Y.shape[1:]))
 
 
 def _repeat(x, n):
@@ -412,6 +422,8 @@ _DIMS_FIELDS = (
     ("o_com", 1), ("o_Iloc", 1), ("o_fR", 1), ("o_fp", 1), ("o_w", 1),
     ("o_wterm", 1), ("o_g", 1), ("o_qmin", 1), ("o_qmax", 1), ("o_cone", 1),
     ("o_scalars", 1),
+    ("torque_limits", 1), ("kp_on", 1), ("o_umin", 1), ("o_umax", 1), ("o_kp", 1),
+    ("o_kd", 1), ("o_Icom", 1), ("o_grav", 1), ("o_prox", 1),
 )
 _DIMS_INTS = sum(n for _, n in _DIMS_FIELDS)
 _consts_cache: dict = {}
@@ -460,21 +472,33 @@ def _stage_consts(ocp, dtype, device):
     axes[tab.one_dof] = tab.axes
     prism[tab.one_dof] = tab.is_prismatic
     sel = list(ocp.feet_fids) + list(mh.feet_ref_frame_ids) + [mh.base_frame_id]
-    cone = (_np64(c["cone"]) if s.force_cone else np.zeros(0))
-    qmin = _np64(c["qmin"])[:, 0] if s.kinematics_limits else np.zeros(0)
-    qmax = _np64(c["qmax"])[:, 0] if s.kinematics_limits else np.zeros(0)
+
+    def opt(name, flag):
+        return _np64(c[name]).reshape(-1) if flag else np.zeros(0)
+
+    fd = ocp.full_dynamics
+    torque_limits = fd and s.torque_limits
+    kp = opt("kp_rows", fd)
     blocks = dict(
         o_jR=tab.jR, o_jp=tab.jp, o_axis=axes, o_prism=prism, o_mass=tab.masses,
         o_com=tab.coms, o_Iloc=tab.I_loc, o_fR=tab.fR[sel], o_fp=tab.fp[sel],
         o_w=_np64(c["w"]), o_wterm=_np64(c["w_term"]), o_g=_np64(c["g"]),
-        o_qmin=qmin, o_qmax=qmax, o_cone=cone,
-        o_scalars=np.array([tab.total_mass, ocp.mass, s.timestep, FRICTION_EPS]))
+        o_qmin=opt("qmin", s.kinematics_limits), o_qmax=opt("qmax", s.kinematics_limits),
+        o_cone=opt("cone", s.force_cone),
+        o_scalars=np.array([tab.total_mass, ocp.mass, s.timestep, FRICTION_EPS]),
+        o_umin=opt("umin", torque_limits), o_umax=opt("umax", torque_limits), o_kp=kp,
+        o_kd=opt("kd_rows", fd), o_Icom=soa_dyn._static_body_params(m)[2],
+        o_grav=np.asarray(m.gravity, np.float64),
+        # the Delassus diagonal's proximal term in this dtype
+        # (constrained_fwd_dynamics_soa)
+        o_prox=np.array([max(ocp.prox_mu, 50.0 * torch.finfo(dtype).eps) if fd else 0.0]))
     dims = dict(
         nj=nj, nq=ocp.nq, nv=nv, nu=ocp.nu, nk=nk, fs=ocp.fs,
         n_cost=blocks["o_w"].shape[0], n_eq=ocp.n_eq, n_in=ocp.n_in,
         n_term_cost=blocks["o_wterm"].shape[0], n_term_eq=ocp.n_term_eq,
         kin_limits=int(s.kinematics_limits), force_cone=int(s.force_cone),
-        land_cstr=int(s.land_cstr),
+        land_cstr=int(s.land_cstr), torque_limits=int(torque_limits),
+        kp_on=int(bool(np.any(kp))),
         parent=list(m.parents), qidx=list(m.idx_q), vidx=list(m.idx_v),
         frame_parent=[int(tab.fparent[f]) for f in sel])
     flat, off = [], 0
@@ -493,9 +517,24 @@ def _stage_consts(ocp, dtype, device):
     return buf, dims_c
 
 
-def _stage_params(sp, nb, T, nk, nx, nu, dtype, device):
+def _stage_kernel(ocp, fd: bool, name: str) -> str:
+    """The C name of a stage kernel, refusing an OCP of the other
+    formulation (the two stages read different constants)."""
+    if ocp.full_dynamics != fd:
+        raise ValueError(f"{'fd_' if fd else ''}{name} takes a "
+                         f"{'full-dynamics' if fd else 'kinodynamics'} OCP, "
+                         f"got {type(ocp).__name__}")
+    return f"fd_{name}" if fd else name
+
+
+def _stage_params(sp, nb, T, nk, nx, nu, dtype, device, fd=False):
+    """Pointers to the stage parameters the kernels read, checked and
+    contiguous; the full-dynamics stage also reads f_ref."""
     shapes = dict(contact_active=(nb, T, nk), foot_ref_p=(nb, T, nk, 3),
-                  x_ref=(nb, T, nx), u_ref=(nb, T, nu), land=(nb, T, nk))
+                  x_ref=(nb, T, nx), u_ref=(nb, T, nu))
+    if fd:
+        shapes["f_ref"] = (nb, T, nk, 3)
+    shapes["land"] = (nb, T, nk)
     t = _check({k: getattr(sp, k) for k in shapes}, shapes, dtype, device)
     return [t[k].data_ptr() for k in shapes]
 
@@ -564,7 +603,7 @@ def _linearize_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu):
                 Qux=bt(H[:, ndx:, :ndx]))
 
 
-def _linearize_cuda(solver, sp, xs, us, lam_eq, lam_in, mu):
+def _linearize_cuda(solver, sp, xs, us, lam_eq, lam_in, mu, fd=False):
     ocp = solver.ocp
     dtype, device = xs.dtype, xs.device
     C, dims = _stage_consts(ocp, dtype, device)
@@ -574,20 +613,21 @@ def _linearize_cuda(solver, sp, xs, us, lam_eq, lam_in, mu):
                   lam_in=(nb, T, ocp.n_in), mu=(nb,))
     t = _check(dict(xs=xs, us=us, lam_eq=lam_eq, lam_in=lam_in, mu=mu), shapes,
                dtype, device)
-    params = _stage_params(sp, nb, T, ocp.nk, nx, nu, dtype, device)
+    params = _stage_params(sp, nb, T, ocp.nk, nx, nu, dtype, device, fd)
     su = solver._su(xs)
     out = dict(A=(nb, T, ndx, ndx), B=(nb, T, ndx, nu), d=(nb, T, ndx),
                qx=(nb, T, ndx), qu=(nb, T, nu), Qxx=(nb, T, ndx, ndx),
                Quu=(nb, T, nu, nu), Qux=(nb, T, nu, ndx))
     out = {k: torch.empty(v, dtype=dtype, device=device) for k, v in out.items()}
-    fn = getattr(_library(), f"smpc_stage_linearize_{_suffix(dtype)}")
+    name = _stage_kernel(ocp, fd, "stage_linearize")
+    fn = getattr(_library(), f"smpc_{name}_{_suffix(dtype)}")
     with torch.cuda.device(device):
         err = fn(ctypes.addressof(dims), C.data_ptr(), t["xs"].data_ptr(),
                  t["us"].data_ptr(), *params, t["lam_eq"].data_ptr(),
                  t["lam_in"].data_ptr(), t["mu"].data_ptr(),
                  None if su is None else su.data_ptr(), nb, T,
                  *[v.data_ptr() for v in out.values()], _stream(device))
-    _raise_on(err, "stage_linearize")
+    _raise_on(err, name)
     return out
 
 
@@ -634,7 +674,7 @@ def _eval_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu):
     return (costs.reshape(n, T), _unlanes(g, n), _unlanes(h, n), _unlanes(gap, n))
 
 
-def _eval_cuda(solver, sp, xs, us, lam_eq, lam_in, mu):
+def _eval_cuda(solver, sp, xs, us, lam_eq, lam_in, mu, fd=False):
     ocp = solver.ocp
     dtype, device = xs.dtype, xs.device
     C, dims = _stage_consts(ocp, dtype, device)
@@ -644,17 +684,18 @@ def _eval_cuda(solver, sp, xs, us, lam_eq, lam_in, mu):
                   lam_eq=(nb, T, ocp.n_eq), lam_in=(nb, T, ocp.n_in), mu=(nb,))
     t = _check(dict(xs=xs, us=us, lam_eq=lam_eq, lam_in=lam_in, mu=mu), shapes,
                dtype, device)
-    params = _stage_params(sp, nb, T, ocp.nk, nx, nu, dtype, device)
+    params = _stage_params(sp, nb, T, ocp.nk, nx, nu, dtype, device, fd)
     n = nb * na
     out = [torch.empty(s, dtype=dtype, device=device)
            for s in ((n, T), (n, T, ocp.n_eq), (n, T, ocp.n_in), (n, T, ndx))]
-    fn = getattr(_library(), f"smpc_stage_eval_{_suffix(dtype)}")
+    name = _stage_kernel(ocp, fd, "stage_eval")
+    fn = getattr(_library(), f"smpc_{name}_{_suffix(dtype)}")
     with torch.cuda.device(device):
         err = fn(ctypes.addressof(dims), C.data_ptr(), t["xs"].data_ptr(),
                  t["us"].data_ptr(), *params, t["lam_eq"].data_ptr(),
                  t["lam_in"].data_ptr(), t["mu"].data_ptr(), nb, na, T,
                  *[o.data_ptr() for o in out], _stream(device))
-    _raise_on(err, "stage_eval")
+    _raise_on(err, name)
     return tuple(out)
 
 
@@ -674,6 +715,88 @@ def stage_eval(solver, sp, xs, us, lam_eq, lam_in, mu):
 
 
 stage_eval.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The full-dynamics stage: K7 inside K1 + K2, K1, and alone
+# ---------------------------------------------------------------------------
+
+
+def fd_stage_linearize(solver, sp, xs, us, lam_eq, lam_in, mu):
+    """K7 + K1 + K2: `stage_linearize`'s contract on a FullDynamicsOCP
+    (stage params with f_ref).  The twin is the same `torch.func` sweep
+    over `FullDynamicsOCP.stage_eval_soa`."""
+    dev = xs.device
+    if dev.type == "cpu":
+        return _linearize_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu)
+    if dev.type == "cuda":
+        out = _linearize_cuda(solver, sp, xs, us, lam_eq, lam_in, mu, fd=True)
+        fd_stage_linearize.launches += 1
+        return out
+    raise RuntimeError(f"fd_stage_linearize: no kernel for device {dev}")
+
+
+fd_stage_linearize.launches = 0
+
+
+def fd_stage_eval(solver, sp, xs, us, lam_eq, lam_in, mu):
+    """K7 + K1 in primal mode on the candidates: `stage_eval`'s contract on
+    a FullDynamicsOCP."""
+    dev = xs.device
+    if dev.type == "cpu":
+        return _eval_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu)
+    if dev.type == "cuda":
+        out = _eval_cuda(solver, sp, xs, us, lam_eq, lam_in, mu, fd=True)
+        fd_stage_eval.launches += 1
+        return out
+    raise RuntimeError(f"fd_stage_eval: no kernel for device {dev}")
+
+
+fd_stage_eval.launches = 0
+
+
+def fd_dynamics_plain(ocp, x, u, p):
+    """Plain PyTorch twin of K7: `FullDynamicsOCP._constrained_acc_soa` on
+    N lanes.  x (N,nx), u (N,nu), p stage params with leading N.  Returns
+    ddq (N,nv), forces (N,nk,fs)."""
+    P = tree_map(lambda a: a.movedim(0, -1), p)
+    ddq, f = ocp._constrained_acc_soa(x.T, u.T, P)
+    return ddq.T, f.permute(2, 0, 1)
+
+
+def _fd_dynamics_cuda(ocp, x, u, p):
+    dtype, device = x.dtype, x.device
+    C, dims = _stage_consts(ocp, dtype, device)
+    n = x.shape[0]
+    shapes = dict(x=(n, ocp.nq + ocp.nv), u=(n, ocp.nu), active=(n, ocp.nk),
+                  foot_ref_p=(n, ocp.nk, 3))
+    t = _check(dict(x=x, u=u, active=p.contact_active, foot_ref_p=p.foot_ref_p), shapes,
+               dtype, device)
+    ddq = torch.empty((n, ocp.nv), dtype=dtype, device=device)
+    f = torch.empty((n, ocp.nk, 3), dtype=dtype, device=device)
+    fn = getattr(_library(), f"smpc_{_stage_kernel(ocp, True, 'dynamics')}_{_suffix(dtype)}")
+    with torch.cuda.device(device):
+        err = fn(ctypes.addressof(dims), C.data_ptr(), *[t[k].data_ptr() for k in shapes],
+                 n, ddq.data_ptr(), f.data_ptr(), _stream(device))
+    _raise_on(err, "fd_dynamics")
+    return ddq, f
+
+
+def fd_dynamics(ocp, x, u, p):
+    """K7: the constrained dynamics of a FullDynamicsOCP on N lanes.
+    x (N,nx), u (N,nu), p stage params with leading N.  Returns ddq (N,nv)
+    and the contact forces (N,nk,3)."""
+    dev = x.device
+    if dev.type == "cpu":
+        return fd_dynamics_plain(ocp, x, u, p)
+    if dev.type == "cuda":
+        out = _fd_dynamics_cuda(ocp, x, u, p)
+        fd_dynamics.launches += 1
+        return out
+    raise RuntimeError(f"fd_dynamics: no kernel for device {dev}")
+
+
+fd_dynamics.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -866,7 +989,8 @@ tick_refs.launches = 0
 
 
 KERNELS = (stage_linearize, stage_eval, riccati_backward, parallel_riccati_backward,
-           linear_rollout, term_linearize, tick_refs)
+           linear_rollout, term_linearize, tick_refs, fd_stage_linearize, fd_stage_eval,
+           fd_dynamics)
 
 
 def reset_launches():

@@ -317,6 +317,13 @@ class MPC:
         p = index_params(oh.problem.stage_params, t)
         return oh.state_derivative(self.xs[t], self.us[t], p)
 
+    def get_contact_forces(self, t: int):
+        """Constraint forces (nk, fs) at stage t (full dynamics only,
+        mpc.cpp:354-380); on the card through `kernels.fd_dynamics`."""
+        oh = self.ocp_handler
+        p = index_params(oh.problem.stage_params, t)
+        return oh.get_contact_forces(self.xs[t], self.us[t], p)
+
     def switch_to_walk(self, velocity_base):
         self.now = WALKING
         self.velocity_base = np.asarray(velocity_base, np.float64)

@@ -23,8 +23,8 @@ import torch
 from ..ops import soa
 from ..ops import world as _world
 from . import cones
-from .base import OCPHandler
-from .spaces import MultibodyPhaseSpace, _lanes
+from .base import MultibodyOCPHandler
+from .spaces import MultibodyPhaseSpace
 
 
 def _dvec(w):
@@ -74,7 +74,7 @@ class KinoTermParams(NamedTuple):
     dcm_ref: torch.Tensor  # (3,) terminal DCM target
 
 
-class KinodynamicsOCP(OCPHandler):
+class KinodynamicsOCP(MultibodyOCPHandler):
     stage_params_type = KinoStageParams
     term_params_type = KinoTermParams
 
@@ -164,11 +164,9 @@ class KinodynamicsOCP(OCPHandler):
     def make_term_params(self, x0, terminal_constraint):
         self._use_term_eq = bool(terminal_constraint)
         self.n_term_eq = 3 if terminal_constraint else 0
-        q = self._tensor(x0)[: self.nq, None]
-        oR, op = soa.fk_world(self.model, q)
-        com0 = soa.com_world(self.model, oR, op)[:, 0]
         return KinoTermParams(
-            x_ref=self._tensor(self.model_handler.reference_state), dcm_ref=com0)
+            x_ref=self._tensor(self.model_handler.reference_state),
+            dcm_ref=self._com0(x0))
 
     # -- the stage kernel (K1) ----------------------------------------------
     def _acc_soa(self, q, v, U, P):
@@ -260,32 +258,6 @@ class KinodynamicsOCP(OCPHandler):
              else torch.zeros((0, N), dtype=X.dtype, device=X.device))
         return r, w, geq, h, xnext
 
-    # -- terminal stage (points x (..., nx) with matching leading axes) ------
-    def _com_h(self, X):
-        m = self.model
-        q, v = X[: self.nq], X[self.nq:]
-        oR, op = soa.fk_world(m, q)
-        Sw = soa.world_axes(m, oR, op)
-        com = soa.com_world(m, oR, op)
-        return com, soa.agx(m, oR, op, Sw, v, com)
-
-    def term_residuals(self, x, p: KinoTermParams):
-        X = _lanes(x)
-        _, hg = self._com_h(X)
-        r_state = soa.state_difference(self.model, _lanes(p.x_ref), X)
-        r = torch.cat([r_state, hg], dim=0).T.reshape(x.shape[:-1] + (-1,))
-        return r, self._const(x)["w_term"]
-
-    def term_eq_constraints(self, x, p: KinoTermParams):
-        """DCM position equality: com + tau * vcom == dcm_ref."""
-        if not self._use_term_eq:
-            return torch.zeros(x.shape[:-1] + (0,), dtype=x.dtype, device=x.device)
-        com, h = self._com_h(_lanes(x))
-        dcm = _lanes(p.dcm_ref)
-        tau = torch.sqrt(dcm[2] / 9.81)
-        g = com + tau * h[:3] / self.mass - dcm
-        return g.T.reshape(x.shape[:-1] + (3,))
-
     def state_derivative(self, x, u, p):
         """Continuous xdot [v; a] (MPC::getStateDerivative, mpc.cpp:346-352)."""
         P = type(p)._make(a[..., None] for a in p)
@@ -293,50 +265,6 @@ class KinodynamicsOCP(OCPHandler):
         return torch.cat([x[self.nq:], a[:, 0]])
 
     # -- reference get/setters (kinodynamics.cpp:155-338) --------------------
-    # Out-of-range stage indices raise IndexError here; the JAX package's
-    # `.at[]` updates silently drop them.
-    def _set_stage(self, **leaves):
-        sp = self.problem.stage_params._replace(**leaves)
-        self.problem = dataclasses.replace(self.problem, stage_params=sp)
-
-    def set_all_foot_translations(self, refs):
-        """Batched (T, nk, 3) write of every stage's foot pose-cost targets
-        (fused equivalent of the setReferencePose loop, mpc.cpp:304-308)."""
-        self._set_stage(foot_ref_p=self._tensor(refs))
-
     def get_reference_force(self, t: int, ee_name: str):
         k = self.model_handler.foot_nb(ee_name)
         return self.problem.stage_params.u_ref[t, k * self.fs: (k + 1) * self.fs]
-
-    def set_velocity_base(self, t: int, velocity_base):
-        x_ref = self.problem.stage_params.x_ref.clone()
-        x_ref[t, self.nq: self.nq + 6] = self._tensor(velocity_base)
-        self._set_stage(x_ref=x_ref)
-
-    def set_reference_state(self, t: int, x_ref):
-        xr = self.problem.stage_params.x_ref.clone()
-        xr[t] = self._tensor(x_ref)
-        self._set_stage(x_ref=xr)
-
-    def get_reference_state(self, t: int):
-        return self.problem.stage_params.x_ref[t]
-
-    def update_terminal_constraint(self, com_ref):
-        tp = self.problem.term_params._replace(dcm_ref=self._tensor(com_ref))
-        self.problem = dataclasses.replace(self.problem, term_params=tp)
-
-    def get_problem_state(self, data_handler):
-        return torch.cat([data_handler.data.q, data_handler.data.v])
-
-    def write_references(self, stage_params, term_params, foot_refs,
-                         x_reference, velocity_base, com_ref):
-        """set_all_foot_translations + set_reference_state(T-1) +
-        set_velocity_base(T-1) + update_terminal_constraint, fused and pure;
-        any leading batch axes.  foot_refs (..., T, nk, 3), x_reference
-        (..., nx), velocity_base (..., 6), com_ref (..., 3)."""
-        xr = torch.cat([x_reference[..., : self.nq], velocity_base,
-                        x_reference[..., self.nq + 6:]], dim=-1)
-        sp = stage_params._replace(
-            foot_ref_p=foot_refs,
-            x_ref=torch.cat([stage_params.x_ref[..., :-1, :], xr[..., None, :]], dim=-2))
-        return sp, term_params._replace(dcm_ref=com_ref)

@@ -8,16 +8,17 @@ AL penalty, BCL tolerances, line-search choice and divergence flag, exactly
 as the JAX package's `BatchedSolver` (a vmap of `run`) does.
 
 One iteration:
-  * K1/K2 `kernels.stage_linearize`: the stage bundle on N = B*T lanes,
-    its forward tangents along the 18 dq, 18 dv and 24 du basis directions
-    and the Gauss-Newton products;
+  * K1/K2 `kernels.stage_linearize` (`fd_stage_linearize` for full
+    dynamics, with K7 inside): the stage bundle on N = B*T lanes, its
+    forward tangents along the 18 dq, 18 dv and nu du basis directions and
+    the Gauss-Newton products;
   * K5 `kernels.term_linearize`: the terminal Jacobian;
   * K3 `kernels.riccati_backward`: the serial Riccati pass, or with
     `SolverSettings(parallel=True)` K6 `kernels.parallel_riccati_backward`,
     the associative-scan pass of O(log T) depth (the B=1 latency path);
   * K4 `kernels.linear_rollout` for every step size, then the Lie integrate,
-    K1 `kernels.stage_eval` on every candidate, the AL merit and an argmin
-    per scenario;
+    K1 `kernels.stage_eval` (`fd_stage_eval`) on every candidate, the AL
+    merit and an argmin per scenario;
   * the BCL multiplier / penalty schedule per scenario.
 Each kernel runs its plain PyTorch twin on CPU tensors.  On the card an
 iteration makes no host synchronization: every constant it needs is made
@@ -113,6 +114,11 @@ class ProxDDPSolver:
             raise ValueError(
                 f"u_scale shape {self._u_scale.shape} != (nu,) = ({ocp.nu},)")
         self._consts = {}
+        # the stage kernels of the formulation (K1+K2 and K1)
+        if ocp.full_dynamics:
+            self._linearize, self._eval = kernels.fd_stage_linearize, kernels.fd_stage_eval
+        else:
+            self._linearize, self._eval = kernels.stage_linearize, kernels.stage_eval
 
     def _const(self, name, values, like):
         """`values` as a tensor on `like`'s device and dtype, made once."""
@@ -234,7 +240,7 @@ class ProxDDPSolver:
         omega = full(-1.0)  # set from the first dual residual
         prim = dual_res = merit = ks = Ks = alpha = None
         for _ in range(n_iters):
-            lin = kernels.stage_linearize(self, sp, xs, us, lam_eq, lam_in, mu)
+            lin = self._linearize(self, sp, xs, us, lam_eq, lam_in, mu)
             Vx_T, Vxx_T = kernels.term_linearize(self, xs[:, -1], tp, lam_term, mu)
             ks, Ks, dual_res = self._backward(lin, Vx_T, Vxx_T, reg)
             dx0 = self.space.difference(xs[:, 0], problems.x0)  # force_initial_condition
@@ -242,8 +248,7 @@ class ProxDDPSolver:
             xs_c, us_c = self._candidates(xs, us, lin, ks, Ks, dx0, alphas)
             xs_f = xs_c.reshape((nb * na,) + xs_c.shape[2:])
             mu_c = _repeat(mu, na)
-            costs, g_c, h_c, gap_c = kernels.stage_eval(self, sp, xs_c, us_c, lam_eq,
-                                                        lam_in, mu)
+            costs, g_c, h_c, gap_c = self._eval(self, sp, xs_c, us_c, lam_eq, lam_in, mu)
             term = self._term_al_cost(xs_f[:, -1], tp_c, _repeat(lam_term, na), mu_c)
             x0_gap = self.space.difference(xs_f[:, 0], x0_c)
             m = self._merit_from(costs, gap_c, x0_gap, term, mu_c).reshape(nb, na)

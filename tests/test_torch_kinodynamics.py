@@ -234,10 +234,12 @@ def test_entry_points_default_to_the_card():
     caller asks for the CPU (every CPU test passes device="cpu")."""
     import inspect
 
-    from simple_mpc_tpu_torch.configs import make_go2_fused, make_go2_kinodynamics
+    from simple_mpc_tpu_torch.configs import (make_go2_fulldynamics, make_go2_fused,
+                                              make_go2_kinodynamics)
     from simple_mpc_tpu_torch.ocp.base import OCPHandler
+    from simple_mpc_tpu_torch.ocp.fulldynamics import FullDynamicsOCP
     from simple_mpc_tpu_torch.ocp.kinodynamics import KinodynamicsOCP
 
-    for fn in (make_go2_kinodynamics, make_go2_fused, KinodynamicsOCP.__init__,
-               OCPHandler.__init__):
+    for fn in (make_go2_kinodynamics, make_go2_fused, make_go2_fulldynamics,
+               KinodynamicsOCP.__init__, FullDynamicsOCP.__init__, OCPHandler.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn

@@ -215,7 +215,9 @@ def test_stage_kernels_match_twins_on_cuda(config):
         lin = kernels.stage_linearize(solver, sp, xs, us, le, li, mu)
         ev = kernels.stage_eval(solver, sp, xs_c, us_c, le, li, mu)
         term = kernels.term_linearize(solver, xs[:, -1], tp, lt, mu)
-        assert [k.launches - m for k, m in zip(kernels.KERNELS, n)] == [1, 1, 0, 0, 0, 1, 0]
+        launched = {k.__name__: k.launches - m for k, m in zip(kernels.KERNELS, n)
+                    if k.launches != m}
+        assert launched == dict(stage_linearize=1, stage_eval=1, term_linearize=1)
         lin0 = kernels._linearize_traj_plain(solver, sp, xs, us, le, li, mu)
         ev0 = kernels._eval_traj_plain(solver, sp, xs_c, us_c, le, li, mu)
         term0 = kernels._linearize_term_plain(solver, xs[:, -1], tp, lt, mu)

@@ -272,7 +272,8 @@ def test_spaces(models):
 
 
 def test_port_does_not_import_jax():
-    code = ("import sys, simple_mpc_tpu_torch, simple_mpc_tpu_torch.kernels;"
+    code = ("import sys, simple_mpc_tpu_torch, simple_mpc_tpu_torch.kernels,"
+            " simple_mpc_tpu_torch.ocp.fulldynamics;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m.startswith('simple_mpc_tpu.') or m == 'simple_mpc_tpu'];"
             "assert not bad, bad")
