@@ -2,6 +2,12 @@
 """Smoke run of the PyTorch port (simple_mpc_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases fd_kernels,fixture,id_sim_kernels
+
+The second form runs the device and build phases and then only the named
+ones of `PHASES` (kernel checks and times, no launch counts and no kernel
+summary), for holding two trees against each other in one call: run it
+from each tree's root in turn.
 
 Phases, each printing one line; any failure raises and exits non-zero:
   1. device  — requires a CUDA card; prints its name and power limit.
@@ -53,14 +59,32 @@ Phases, each printing one line; any failure raises and exits non-zero:
                m g; tick p50/p99 and one tick's trace.  Then 4 ticks of the
                same MPC with all 68 rows: finite, no divergence, prim and
                stage-0 force sum printed.
-Phases 4-10 drive the main paths.  The kernels' launch counters are zeroed
-just before each of them (after the latency engine's set-up, whose first
-solve is serial) and read just after (a `<phase>_launches` line): each
-must have launched every kernel it runs (phase 7 the six of the serial
-tick; phase 8 the same with K6 in place of K3, and K3 never; phases 9-10
-the full-dynamics stage kernels and never the kinodynamics ones).  The kernel
-summary's `launches` is the sum over those seven runs; the launches of
-phase 3 are not counted.  Its `bound_ms` is the larger of the bytes each
+ 11. id_sim_kernels — (in phase 3's place in the order, after the
+               full-dynamics kernels) K8's qp_admm and id_assemble and
+               K10's sim_step against their twins at B=1 and B=128, f32 and
+               f64, on perturbed Go2 states with the contact sets {all,
+               diagonal pair} and the simulator standing, in free fall and
+               with one foot lifted (phase_id_sim_kernels states the gates);
+               times, bounds, registers and stack from the ptxas log.
+ 12. closed_loop — the port's examples/go2_kinodynamics.py on the card,
+               f32, uncut (T=50 trot at 0.2 m/s, the example's ID with 60
+               ADMM steps, simulator dt 1e-3, 10 inner steps a tick), 160
+               MPC ticks: the four walking gates of tests/test_walking.py;
+               p50/p99 of the tick, of its references (with the ten inner
+               steps' interpolated targets), of the inner step (ID and
+               simulator) and of the inner step with a tenth of the
+               references; the three kernels' times and a trace of 10
+               inner steps.
+Phases 4-10 and 12 drive the main paths.  The kernels' launch counters are
+zeroed just before each of them (after the latency engine's and the closed
+loop's set-up, whose first solves run before the path) and read just after
+(a `<phase>_launches` line): each must have launched every kernel it runs
+(phase 7 the six of the serial tick; phase 8 the same with K6 in place of
+K3, and K3 never; phases 9-10 the full-dynamics stage kernels and never the
+kinodynamics ones; phase 12 the five solver kernels exactly once a tick and
+the three closed-loop kernels exactly once an inner step).  The kernel
+summary's `launches` is the sum over those eight runs; the launches of
+phases 3 and 11 and of phase 12's timings are not counted.  Its `bound_ms` is the larger of the bytes each
 kernel moves (inputs read once, outputs written once, at the summary's
 shape) over 3.35 TB/s and its counted FLOPs over 67 TFLOP/s (H100 SXM,
 FP32 outside the tensor cores); FLOPs of the rigid-body arithmetic of K1,
@@ -103,10 +127,24 @@ PATH_KERNELS = dict(batched=SOLVER_KERNELS, fixture=SOLVER_KERNELS, mpc=SOLVER_K
                     fused=SOLVER_KERNELS + ("tick_refs",), latency=LATENCY_KERNELS,
                     fd_batched=FD_SOLVER_KERNELS,
                     fd_mpc=FD_SOLVER_KERNELS + ("fd_dynamics",))
+PATH_KERNELS["closed_loop"] = SOLVER_KERNELS + ("id_assemble", "qp_admm", "sim_step")
+# launches of a closed-loop run: each tick's MPC iteration launches each
+# solver kernel once, each inner step each of the three once
+PATH_EXACT = dict(closed_loop=lambda ticks: {
+    **dict.fromkeys(SOLVER_KERNELS, ticks),
+    **dict.fromkeys(("id_assemble", "qp_admm", "sim_step"), 10 * ticks)})
 PATH_ABSENT = dict(latency=("riccati_backward",),
                    fd_batched=("stage_linearize", "stage_eval"),
-                   fd_mpc=("stage_linearize", "stage_eval"))
+                   fd_mpc=("stage_linearize", "stage_eval"),
+                   closed_loop=("parallel_riccati_backward", "tick_refs", "fd_stage_linearize",
+                                "fd_stage_eval", "fd_dynamics"))
 FD_MPC_T = 50  # examples/go2_fulldynamics.py's horizon
+CLOSED_LOOP_T = 50  # examples/go2_kinodynamics.py's horizon
+CLOSED_LOOP_TICKS = 160  # tests/test_walking.py:181
+# f32 closed-loop kernels vs their twin in f64 (see phase_id_sim_kernels)
+F32_ID_TOL = 1e-6
+F32_QP_TOL = 2e-2
+F32_SIM_TOL = 1e-5
 # H100 SXM peaks from NVIDIA's datasheet: FP32 outside the tensor
 # cores, and HBM
 F32_FLOPS = 67e12
@@ -662,12 +700,22 @@ def phase_fd_kernels(device):
         bounds = {k: roofline(f * (1 if k == "fd_dynamics" else B),
                               m * (1 if k == "fd_dynamics" else B))
                   for k, (f, m) in per.items()}
+        # the other shapes the table reports: (a) and (b) for one scenario
+        # at the fd_mpc tick's T=50 (FLOPs and bytes scale with the stages),
+        # (c) on all B*T lanes
+        other = dict(
+            fd_stage_linearize_B1_T50=roofline(*(x * FD_MPC_T / T for x in
+                                                 per["fd_stage_linearize"])),
+            fd_stage_eval_B1_T50=roofline(*(x * FD_MPC_T / T for x in per["fd_stage_eval"])),
+            fd_dynamics_all_lanes=roofline(k7 * B * T, nbytes((dyn_args[1:],
+                                                               kernels.fd_dynamics(*dyn_args)))))
         name = str(dtype).replace("torch.", "")
         out[name] = dict(errs=errs, abs_err=abs_err, times=times, bounds=bounds)
         phase(f"fd_kernels_{name}", t0, B=B, T=T, tol=tol, rel_err=errs, max_abs_err=abs_err,
               kernel_and_twin_vs_f64_twin=vs64 or None,
               ms_kernel_vs_plain=times, fd_dynamics_all_lanes_ms=all_lanes,
-              bound_ms=bounds if dtype == torch.float32 else None)
+              bound_ms=bounds if dtype == torch.float32 else None,
+              other_bound_ms=other if dtype == torch.float32 else None)
     return out
 
 
@@ -1037,6 +1085,337 @@ def phase_latency(device, fused, carry0, setup_s):
           donated_trace=trace)
 
 
+def ptxas_report(log, names):
+    """{kernel: {"registers": n, "stack_bytes": n}} of the kernels whose
+    mangled names contain one of `names`, read from nvcc's -Xptxas -v log:
+    the kernel's "Used" line, whose cumulative stack size counts the stack
+    of the device functions it calls (a kernel's own "stack frame" line
+    reads 0 where its work sits in a function that was not inlined)."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = next((n for n in names if n in ln), None)
+            if cur is not None:
+                cur = f"{cur}_{'f64' if f'{cur}IdE' in ln else 'f32'}"
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            stack = (int(ln.split("bytes cumulative stack")[0].split()[-1])
+                     if "cumulative stack" in ln else 0)
+            out[cur] = dict(registers=int(ln.split("Used")[1].split()[0]), stack_bytes=stack)
+            cur = None
+    return out
+
+
+def id_sim_case(device, dtype, nb, seed):
+    """The example's ID (and one with contact_motion_equality), the
+    simulator with the ground at the standing feet, and nb perturbed Go2
+    robots made from numpy with a fixed seed: ID states and targets with
+    the contact sets {all, diagonal pair} in turns; simulator states in
+    turns standing (perturbed velocities), 5 cm above the ground (free
+    fall) and with the FL thigh raised 0.3 rad (that foot off the
+    ground)."""
+    from simple_mpc_tpu_torch.configs import go2_handler
+    from simple_mpc_tpu_torch.examples.go2_kinodynamics import ID_SETTINGS
+    from simple_mpc_tpu_torch.examples.loop import foot_height
+    from simple_mpc_tpu_torch.id.kinodynamics_id import IDSettings, KinodynamicsID
+    from simple_mpc_tpu_torch.sim.simulator import SimSettings, Simulator
+
+    mh = go2_handler()
+    ids = [KinodynamicsID(mh, 1e-3, IDSettings(**ID_SETTINGS, contact_motion_equality=eq),
+                          device=device, dtype=dtype) for eq in (False, True)]
+    sim = Simulator(mh.model, mh.feet_frame_ids,
+                    SimSettings(dt=1e-3, ground_height=foot_height(mh)), device=device)
+    rng = np.random.default_rng(seed)
+    x0 = np.asarray(mh.reference_state)
+    nq, nv = mh.model.nq, mh.model.nv
+
+    def configs(scale):
+        q = x0[:nq] + scale * rng.normal(size=(nb, nq))
+        q[:, 3:7] /= np.linalg.norm(q[:, 3:7], axis=1, keepdims=True)
+        return q
+
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
+    contacts = np.where((np.arange(nb) % 2 == 0)[:, None], 1.0,
+                        np.array([1.0, 0.0, 0.0, 1.0])[None])
+    idin = dict(q=t(configs(0.02)), v=t(0.1 * rng.normal(size=(nb, nv))),
+                targets=dict(q_t=t(configs(0.01)), v_t=t(0.1 * rng.normal(size=(nb, nv))),
+                             a_t=t(rng.normal(size=(nb, nv))), contacts=t(contacts),
+                             f_t=t(rng.normal(size=(nb, 4, 3)) + [0.0, 0.0, 30.0])))
+    qs = np.repeat(x0[None, :nq], nb, 0)
+    qs[1::3, 2] += 0.05
+    qs[2::3, 8] += 0.3
+    simin = (t(qs), t(0.05 * rng.normal(size=(nb, nv))), t(0.5 * rng.normal(size=(nb, nv - 6))))
+    return ids, sim, idin, simin
+
+
+def qp_flops(n, m, iters):
+    """Counted FLOPs of one ADMM solve: K = H + sigma I + A' diag(rho) A, its
+    Cholesky, per step A'w, the two triangular solves, Ax and ~10 m
+    elementwise; the residuals at the end."""
+    return (2 * m * n * n + n ** 3 / 3 + iters * (4 * m * n + 2 * n * n + 10 * m)
+            + 4 * m * n + 2 * n * n)
+
+
+def phase_id_sim_kernels(device, ptxas_log=""):
+    """K8 (qp_admm, id_assemble) and K10 (sim_step) against their twins on
+    the card, at B=1 (the closed loop's shape) and B=128, f32 and f64, on
+    perturbed Go2 states (id_sim_case).  Gates: in f64 the kernel within
+    1e-10 of the twin (max|a - b| / max(1, max|b|); for l and u over the
+    finite rows, the rows off at +-1e20 equal); the QP's residuals within
+    1e-10 of the twin's relative to the scale of the sums that form them;
+    in f32 the kernel against the twin in f64 on the same inputs within
+    F32_ID_TOL, F32_QP_TOL (z and y; the f32 residuals are roundoff and
+    printed) and F32_SIM_TOL, the masks of both solves equal to the twin's
+    in both types.  Those three are about four to seven times the f32
+    twin's own distance to the f64 twin on these inputs (printed beside
+    them).  The QP runs on the twin's assembly of each dtype, cold and
+    warm-started from its cold solution."""
+    from simple_mpc_tpu_torch import kernels
+
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        f32 = dtype == torch.float32
+        t0 = time.perf_counter()
+        errs, abs_err, vs64, times, bounds, masks = {}, {}, {}, {}, {}, {}
+        for nb in (1, B):
+            ids, sim, idin, simin = id_sim_case(device, dtype, nb, seed=11)
+
+            def gate(name, got, want, want64, tol, keep=None):
+                for a in got:
+                    check(bool(torch.isfinite(a).all()), f"{name} {dtype} B={nb}: non-finite")
+                pairs = list(zip(got, want64 if f32 else want))
+                if keep is not None:
+                    pairs = [pairs[i] for i in keep]
+                e = max(bound_rel(a, b) for a, b in pairs)
+                check(e <= tol, f"{name} {dtype} B={nb}: {e:.3e} > {tol:.1e}")
+                errs[name] = max(errs.get(name, 0.0), e)
+                abs_err[name] = max([abs_err.get(name, 0.0)] + [
+                    float(finite_abs(a, b)) for a, b in zip(got, want)])
+                if f32:
+                    twin = max(bound_rel(a, b) for a, b in
+                               [list(zip(want, want64))[i] for i in keep or range(len(got))])
+                    old = vs64.get(name, (0.0, 0.0))
+                    vs64[name] = (max(old[0], e), max(old[1], twin))
+
+            as64 = lambda d: {k: a.double() for k, a in d.items()}  # noqa: E731
+            for idq in ids:
+                args = (idin["q"], idin["v"], idin["targets"])
+                got = kernels.id_assemble(idq, *args)
+                want = idq._assemble_core(*args)
+                want64 = idq._assemble_core(idin["q"].double(), idin["v"].double(),
+                                            as64(idin["targets"])) if f32 else None
+                gate("id_assemble", got, want, want64, F32_ID_TOL if f32 else 1e-10)
+                H, g, A, l, u = want[:5]
+                qp64 = ([x.double() for x in (H, g, A, l, u)] if f32 else None)
+                cold = kernels.qp_admm(H, g, A, l, u, iters=60)
+                cold0 = kernels.solve_qp(H, g, A, l, u, 60)
+                for z0, y0 in ((None, None), (cold0.z, cold0.y)):
+                    got = kernels.qp_admm(H, g, A, l, u, iters=60, z0=z0, y0=y0)
+                    want = kernels.solve_qp(H, g, A, l, u, 60, z0=z0, y0=y0)
+                    want64 = (kernels.solve_qp(*qp64, 60, z0=None if z0 is None else z0.double(),
+                                               y0=None if y0 is None else y0.double())
+                              if f32 else None)
+                    gate("qp_admm", got, want, want64, F32_QP_TOL if f32 else 1e-10,
+                         keep=(0, 1))
+                    if not f32:  # the residuals, against the scale of their sums
+                        scale = 1.0 + float(g.abs().max() + (H.abs().sum(-1).max()
+                                            * want.z.abs().max()) + A.abs().sum(-2).max()
+                                            * want.y.abs().max())
+                        e = max(float((a - b).abs().max()) for a, b in
+                                zip(got[2:], want[2:])) / scale
+                        check(e <= 1e-10, f"qp_admm f64 B={nb}: residuals {e:.3e} > 1e-10")
+            got = kernels.sim_step(sim, *simin)
+            want = sim.step_plain(*simin)
+            want64 = sim.step_plain(*(x.double() for x in simin)) if f32 else None
+            for ref in (want, want64) if f32 else (want,):
+                check(torch.equal(got.active, ref.active.to(dtype)),
+                      f"sim_step {dtype} B={nb}: contact masks differ from the twin's")
+            gate("sim_step", got[:3], want[:3], want64 and want64[:3],
+                 F32_SIM_TOL if f32 else 1e-10)
+            masks[f"B{nb}"] = got.active.sum(dim=0).tolist()
+
+            idq = ids[0]
+            args = (idin["q"], idin["v"], idin["targets"])
+            H, g, A, l, u, M, h, JcT = kernels.id_assemble(idq, *args)
+            qp_args = (H, g, A, l, u)
+            slow = SLOW_REPS
+            times[f"B{nb}"] = dict(
+                id_assemble=(cuda_ms(lambda: kernels.id_assemble(idq, *args), REPS),
+                             cuda_ms(lambda: idq._assemble_core(*args), slow)),
+                qp_admm=(cuda_ms(lambda: kernels.qp_admm(*qp_args, iters=60), REPS),
+                         cuda_ms(lambda: kernels.solve_qp(*qp_args, 60), slow)),
+                sim_step=(cuda_ms(lambda: kernels.sim_step(sim, *simin), REPS),
+                          cuda_ms(lambda: sim.step_plain(*simin), slow)))
+            n, m = H.shape[-1], A.shape[-2]
+            nr = idq.nu + 6 + 2 * 3 * idq.nk
+            nv, nc = idq.nv, 3 * idq.nk
+            per = dict(
+                id_assemble=(2 * nr * n * n + 2 * nr * n,
+                             nbytes((args, H, g, A, l, u, M, h, JcT))),
+                qp_admm=(qp_flops(n, m, 60), nbytes((qp_args, cold))),
+                sim_step=(2 * k7_flops(nv, nc), nbytes((simin, got[:3]))))
+            bounds[f"B{nb}"] = {k: roofline(f * nb, mv) for k, (f, mv) in per.items()}
+        name = str(dtype).replace("torch.", "")
+        out[name] = dict(errs=errs, abs_err=abs_err, times=times, bounds=bounds)
+        phase(f"id_sim_kernels_{name}", t0, tol=dict(
+                  id_assemble=F32_ID_TOL, qp_admm=F32_QP_TOL, sim_step=F32_SIM_TOL)
+              if f32 else 1e-10, rel_err=errs, max_abs_err=abs_err,
+              kernel_and_twin_vs_f64_twin=vs64 or None, masks_active_per_foot=masks,
+              ms_kernel_vs_plain=times, bound_ms=bounds if f32 else None,
+              ptxas=ptxas_report(ptxas_log, ("qp_admm_kernel", "id_assemble_kernel",
+                                             "sim_step_kernel")))
+    return out
+
+
+def bound_rel(a, b):
+    """max|a - b| / max(1, max|b|) over the entries where |b| < 1e19; the
+    entries at +-1e20 (rows switched off) must agree in sign and stay beyond
+    1e19 (float32 rounds 1e20)."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    off = b.abs() >= 1e19
+    if bool(off.any()):
+        same = torch.equal(torch.sign(a[off]), torch.sign(b[off])) and bool(
+            (a[off].abs() >= 1e19).all())
+        if not same:
+            return float("inf")
+    on = ~off
+    if not bool(on.any()):
+        return 0.0
+    return float((a[on] - b[on]).abs().max() / b[on].abs().max().clamp_min(1.0))
+
+
+def finite_abs(a, b):
+    """max|a - b| over the entries where |b| < 1e19."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    on = b.abs() < 1e19
+    return (a[on] - b[on]).abs().max() if bool(on.any()) else torch.zeros(())
+
+
+def closed_loop_setup(device):
+    """The example's MPC, model handler and ID in f32 (their construction
+    runs the MPC's first solve and the ID's dry run)."""
+    from simple_mpc_tpu_torch.examples.go2_kinodynamics import setup
+
+    return setup(CLOSED_LOOP_T, device, torch.float32)
+
+
+def phase_closed_loop(device, mpc, mh, idq):
+    """The Go2 kinodynamics closed loop of the port's example
+    (examples/go2_kinodynamics.py: T=50, trot 10/30/10/30 at 0.2 m/s, apex
+    0.05 m, mu_init 1e-8, the example's IDSettings with qp_iters 60, the
+    simulator at dt 1e-3 with 10 inner steps a tick), f32, for
+    CLOSED_LOOP_TICKS MPC ticks.  Gates (tests/test_walking.py:184-209):
+    finite; base z within 0.08 m of its start; progress > 0.02 m; |v| < 20;
+    stance feet slip < 2 cm between ticks.  Prints p50/p99 on the host
+    clock of the MPC iteration, of the tick's references (state
+    derivatives, reference forces and the 10 interpolated targets), of
+    the inner step (ID and simulator: the interpolation is not in it) and
+    of the inner step with a tenth of its tick's references (the whole
+    1 kHz cost a step), the three kernels' CUDA-event
+    medians at the loop's last state, profiler traces of 10 inner steps and
+    of one tick's references, and the host time of interpolating one inner
+    step's state target against a tick's ten at once."""
+    from simple_mpc_tpu_torch import kernels
+    from simple_mpc_tpu_torch.examples.go2_kinodynamics import run
+    from simple_mpc_tpu_torch.examples.loop import foot_height
+    from simple_mpc_tpu_torch.ops import soa
+    from simple_mpc_tpu_torch.sim.simulator import SimSettings, Simulator
+    from simple_mpc_tpu_torch.utils.interpolator import Interpolator
+
+    t0 = time.perf_counter()
+    log = run(mpc, mh, idq, n_steps=CLOSED_LOOP_TICKS, log_every=0)
+    wall = time.perf_counter() - t0
+    # the loop's launches; those of the timings below are put back out
+    loop_launches = {k: k.launches for k in kernels.KERNELS}
+    q, v = np.stack(log["q"]), np.stack(log["v"])
+    check(np.isfinite(q).all() and np.isfinite(v).all(), "closed loop: non-finite state")
+    z0 = q[0, 2]
+    check(bool((np.abs(q[:, 2] - z0) < 0.08).all()),
+          f"closed loop: fell: base z {q[:, 2].min():.3f}..{q[:, 2].max():.3f}")
+    check(q[-1, 0] - q[0, 0] > 0.02, f"closed loop: no progress: x {q[0, 0]:.4f} -> {q[-1, 0]:.4f}")
+    check(np.abs(v).max() < 20.0, f"closed loop: |v| {np.abs(v).max():.2f} >= 20")
+    ids = np.asarray(mh.feet_frame_ids)
+    qt = torch.as_tensor(q.T)
+    oR, op = soa.fk_world(mh.model, qt)
+    fp = soa.frame_placements_world(mh.model, oR, op, ids)[1].permute(2, 0, 1).numpy()
+    ground = fp[0, :, 2].mean()
+    slip_max = 0.0
+    for i in range(1, len(fp)):
+        on = (fp[i - 1, :, 2] < ground + 0.005) & (fp[i, :, 2] < ground + 0.005)
+        slip = np.linalg.norm(fp[i, :, :2] - fp[i - 1, :, :2], axis=1)
+        if on.any():
+            slip_max = max(slip_max, float(slip[on].max()))
+    check(slip_max < 0.02, f"closed loop: stance slip {slip_max:.4f} m >= 0.02")
+    tick_ms = 1e3 * np.asarray(log["solve_time"])
+    refs_ms = 1e3 * np.asarray(log["refs_time"])
+    inner_ms = 1e3 * np.asarray(log["inner_time"])
+    # the whole 1 kHz cost a step: the tick's references and targets shared
+    # over its 10 inner steps, plus the step (ID and simulator)
+    step_all_ms = refs_ms / 10 + inner_ms
+
+    # the three kernels at the loop's last state, and a trace of inner steps
+    dev, dt = mpc.xs.device, mpc.xs.dtype
+    qd = torch.as_tensor(q[-1], dtype=dt, device=dev)
+    vd = torch.as_tensor(v[-1], dtype=dt, device=dev)
+    sim = Simulator(mh.model, mh.feet_frame_ids,
+                    SimSettings(dt=1e-3, ground_height=foot_height(mh)), device=dev)
+    targets = {k: a[None] for k, a in idq._targets.items()}
+    qb, vb = qd[None], vd[None]
+    H, g, A, l, u = kernels.id_assemble(idq, qb, vb, targets)[:5]
+    tau = idq.solve(0.0, qd, vd)
+    kms = dict(id_assemble=cuda_ms(lambda: kernels.id_assemble(idq, qb, vb, targets), REPS),
+               qp_admm=cuda_ms(lambda: kernels.qp_admm(H, g, A, l, u, iters=60), REPS),
+               sim_step=cuda_ms(lambda: kernels.sim_step(sim, qb, vb, tau[None]), REPS))
+
+    def inner_steps():
+        qq, vv = qd, vd
+        for _ in range(10):
+            t_ = idq.solve(0.0, qq, vv)
+            qq, vv, _ = sim.step(qq, vv, t_)
+
+    trace = trace_calls(inner_steps, n=3)
+
+    # the tick's references (as examples/loop.py takes them) under the
+    # profiler, and the interpolation of one inner step's targets against
+    # a tick's ten at once, on the host clock
+    interp = Interpolator(mh.model)
+    xs, delays = mpc.xs[:2], [i * 1e-3 for i in range(10)]
+
+    def refs():
+        aa = torch.stack([mpc.get_state_derivative(0)[-mh.model.nv:],
+                          mpc.get_state_derivative(1)[-mh.model.nv:]])
+        interp.interpolate_state(delays, 0.01, xs)
+        interp.interpolate_linear(delays, 0.01, aa)
+
+    def host_ms(fn, reps=REPS):
+        fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t1) / reps
+
+    refs_trace = trace_calls(refs, n=3)
+    interp_ms = dict(one_delay=host_ms(lambda: interp.interpolate_state(3e-3, 0.01, xs)),
+                     ten_delays=host_ms(lambda: interp.interpolate_state(delays, 0.01, xs)))
+    for k, n in loop_launches.items():
+        k.launches = n
+    phase("closed_loop", t0, T=CLOSED_LOOP_T, ticks=CLOSED_LOOP_TICKS, inner_steps_per_tick=10,
+          dtype="float32", wall_s=wall,
+          tick_p50_ms=float(np.percentile(tick_ms, 50)),
+          tick_p99_ms=float(np.percentile(tick_ms, 99)),
+          refs_p50_ms=float(np.percentile(refs_ms, 50)),
+          refs_p99_ms=float(np.percentile(refs_ms, 99)),
+          inner_step_p50_ms=float(np.percentile(inner_ms, 50)),
+          inner_step_p99_ms=float(np.percentile(inner_ms, 99)),
+          inner_step_with_refs_p50_ms=float(np.percentile(step_all_ms, 50)),
+          inner_step_with_refs_p99_ms=float(np.percentile(step_all_ms, 99)),
+          kernel_ms=kms, base_z=[float(q[:, 2].min()), float(q[:, 2].max())],
+          progress_m=float(q[-1, 0] - q[0, 0]), max_abs_v=float(np.abs(v).max()),
+          max_stance_slip_m=slip_max, ten_inner_steps_trace=trace,
+          tick_refs_trace=refs_trace, interpolate_state_host_ms=interp_ms)
+
+
 def drive_main_path(device):
     """Phases 4-8, each with the launch counters zeroed just before it (after
     its set-up) and read just after; returns the launches of each kernel
@@ -1048,7 +1427,8 @@ def drive_main_path(device):
                              ("mpc", phase_mpc, None), ("fused", phase_fused, None),
                              ("latency", phase_latency, latency_setup),
                              ("fd_batched", phase_fd_batched, None),
-                             ("fd_mpc", phase_fd_mpc, None)):
+                             ("fd_mpc", phase_fd_mpc, None),
+                             ("closed_loop", phase_closed_loop, closed_loop_setup)):
         args = setup(device) if setup else ()
         kernels.reset_launches()
         run(device, *args)
@@ -1057,13 +1437,28 @@ def drive_main_path(device):
             check(counts[name] > 0, f"the {path} path never launched {name}")
         for name in PATH_ABSENT.get(path, ()):
             check(counts[name] == 0, f"the {path} path launched {name}")
+        if path in PATH_EXACT:
+            for name, n in PATH_EXACT[path](CLOSED_LOOP_TICKS).items():
+                check(counts[name] == n, f"the {path} path launched {name} "
+                      f"{counts[name]} times, not {n}")
         print(json.dumps({"phase": f"{path}_launches", "launches": counts}), flush=True)
         for name, n in counts.items():
             launches[name] += n
     return launches
 
 
+PHASES = ("kernels", "fd_kernels", "id_sim_kernels", "fixture")
+
+
 def main():
+    phases = None
+    if len(sys.argv) == 3 and sys.argv[1] == "--phases":
+        phases = sys.argv[2].split(",")
+        unknown = set(phases) - set(PHASES)
+        if unknown:
+            raise SystemExit(f"unknown phases {sorted(unknown)}; choose from {PHASES}")
+    elif len(sys.argv) > 1:
+        raise SystemExit("usage: chip_smoke.py [--phases " + ",".join(PHASES) + "]")
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -1086,8 +1481,21 @@ def main():
     phase("build", t0, nvcc_seconds=round(info["seconds"], 3), library=os.path.relpath(
         info["path"], ROOT), ptxas=ptxas)
 
+    if phases is not None:
+        runs = dict(kernels=phase_kernels, fd_kernels=phase_fd_kernels,
+                    id_sim_kernels=lambda d: phase_id_sim_kernels(d, info["log"]),
+                    fixture=phase_fixture)
+        for name in phases:
+            runs[name](device)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()},
+                          "phases": phases}), flush=True)
+        return
+
     kres = phase_kernels(device)
     fdres = phase_fd_kernels(device)
+    idres = phase_id_sim_kernels(device, info["log"])
     launches = drive_main_path(device)
 
     replaces = dict(
@@ -1102,10 +1510,17 @@ def main():
         fd_stage_linearize=("fulldyn.cu", "simple_mpc_tpu/solver/proxddp.py:271"),
         fd_stage_eval=("fulldyn.cu", "simple_mpc_tpu/solver/proxddp.py:183"),
         fd_dynamics=("fulldyn.cu", "simple_mpc_tpu/ops/soa_dyn.py:199"),
+        qp_admm=("qp.cu", "simple_mpc_tpu/id/qp.py:33"),
+        id_assemble=("id.cu", "simple_mpc_tpu/id/kinodynamics_id.py:131"),
+        sim_step=("sim.cu", "simple_mpc_tpu/sim/simulator.py:125"),
     )
+    id32 = idres["float32"]
     f32 = {k: {n: {**kres["float32"][n], **fdres["float32"][n]}[k] for n in
-               ("abs_err", "times", "bounds")} for k in replaces}
-    shape = dict(parallel_riccati_backward=(1, T), fd_dynamics=(1, 1))
+               ("abs_err", "times", "bounds")} for k in replaces if k not in id32["errs"]}
+    f32.update({k: dict(abs_err=id32["abs_err"][k], times=id32["times"]["B1"][k],
+                        bounds=id32["bounds"]["B1"][k]) for k in id32["errs"]})
+    shape = dict(parallel_riccati_backward=(1, T), fd_dynamics=(1, 1), qp_admm=(1, 1),
+                 id_assemble=(1, 1), sim_step=(1, 1))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"simple_mpc_tpu_torch/csrc/{src}",
          "replaces": rep, "launches": launches[name],

@@ -1,8 +1,9 @@
-"""Carry problems, solver iterates, linearizations and fused-tick carries
-between numpy and the port.
+"""Carry problems, solver iterates, linearizations, fused-tick carries and
+the inverse-dynamics state between numpy and the port.
 
-The JAX package's `Problem` leaves, `Results` and `MPCCarry`, taken as
-numpy arrays, become the port's tensors and back.  This is how the same
+The JAX package's `Problem` leaves, `Results`, `MPCCarry` and
+`KinodynamicsID` targets and warm start, taken as numpy arrays, become the
+port's tensors and back.  This is how the same
 problem and the same warm start are fed to both packages (the port itself
 never imports the JAX package).
 """
@@ -93,3 +94,17 @@ def carry_to_numpy(carry) -> dict:
         out[f] = ({k: host(a) for k, a in v._asdict().items()}
                   if hasattr(v, "_fields") else host(v))
     return out
+
+
+ID_TARGETS = ("q_t", "v_t", "a_t", "contacts", "f_t")
+
+
+def id_state_from_numpy(idsolver, targets, warm=None):
+    """Set a port `KinodynamicsID`'s targets and QP warm start from the JAX
+    package's `KinodynamicsID._targets` (a dict with the `ID_TARGETS` keys,
+    one robot) and `_qp_warm` (None, or (z, y) of one robot), as numpy
+    arrays, in the port ID's device and dtype."""
+    dev, dt = idsolver.device, idsolver.dtype
+    idsolver._targets.update({k: _tensor(targets[k], dev, dt) for k in ID_TARGETS})
+    idsolver._qp_warm = None if warm is None else tuple(_tensor(a, dev, dt)[None]
+                                                        for a in warm)

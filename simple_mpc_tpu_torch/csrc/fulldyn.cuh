@@ -232,24 +232,27 @@ SMPC_HD void fd_kinematics(const Dims& D, const real_t<S>* C, const S* q, const 
   }
 }
 
-// Constrained forward dynamics of the lane (soa_dyn.constrained_fwd_dynamics_soa
-// with dim = 3): ddq (nv) and the contact forces f (3 nk, foot-major).
-template <class S>
-SMPC_HD void constrained_dynamics(const Dims& D, const real_t<S>* C, const FdKin<S>& K,
-                                  const S* v, const S* u, const real_t<S>* active,
-                                  const real_t<S>* ref_p, S* ddq, S* f) {
+// The mass matrix and the bias torques of the lane: each entry of M's lower
+// triangle (crba_world) goes to store(i, j, M_ij), j <= i, where the caller
+// keeps it (packed by `tri` for the Cholesky, full for the ID's QP); the
+// bias torques h (nle_world: the Newton-Euler pass with the fictitious base
+// acceleration -g) and the bodies' bias accelerations aW (world, at the
+// origin: the derivative of vW along the flow q' = v), which the contact
+// rows' J-dot v take.
+template <class S, class Store>
+SMPC_HD void mass_bias(const Dims& D, const real_t<S>* C, const FdKin<S>& K, const S* v,
+                       Store&& store, S* h, V6<S>* aW) {
   typedef real_t<S> F;
-  const int nv = D.nv, nj = D.nj, nk = D.nk, nc = 3 * nk;
+  const int nv = D.nv, nj = D.nj;
 
   // composite inertias: each body's, then summed up the tree (children
   // follow their parents in joint order)
   Inertia<S> IC[kMaxJ];
   for (int j = 0; j < nj; ++j) IC[j] = body_inertia(D, C, K.k, j);
 
-  // bias accelerations aW (world, at the origin) and the body forces of
-  // the Newton-Euler pass with the fictitious base acceleration -g; they
+  // bias accelerations and the body forces of the Newton-Euler pass; they
   // use each body's own inertia, so they come before the composites
-  V6<S> aW[kMaxJ], Fb[kMaxJ];
+  V6<S> Fb[kMaxJ];
   {
     V6<S> a0 = scale6(motion_cross(K.vW[0], K.Sw[0]), v[0]);
     for (int d = 1; d < 6; ++d) a0 = add6(a0, scale6(motion_cross(K.vW[0], K.Sw[d]), v[d]));
@@ -270,22 +273,32 @@ SMPC_HD void constrained_dynamics(const Dims& D, const real_t<S>* C, const FdKin
     Fb[D.parent[j]] = add6(Fb[D.parent[j]], Fb[j]);
   }
 
-  // mass matrix, lower triangle (crba_world): M[i][j] = Sw_a . IC Sw_b for
-  // the dof b of the deeper joint
-  S Lm[kMaxV * (kMaxV + 1) / 2];
-  {
-    V6<S> Fd[kMaxV];
-    for (int d = 0; d < nv; ++d) Fd[d] = inertia_mul(IC[dof_joint(d)], K.Sw[d]);
-    for (int i = 0; i < nv; ++i)
-      for (int j = 0; j <= i; ++j) {
-        const int ji = dof_joint(i), jj = dof_joint(j);
-        S mij;
-        if (ji == jj) mij = dot6(K.Sw[i], Fd[j]);
-        else if (joint_ancestor(D, jj, ji)) mij = dot6(K.Sw[j], Fd[i]);
-        else mij = S(F(0));
-        Lm[tri(i, j)] = mij;
-      }
-  }
+  // M[i][j] = Sw_a . IC Sw_b for the dof b of the deeper joint
+  V6<S> Fd[kMaxV];
+  for (int d = 0; d < nv; ++d) Fd[d] = inertia_mul(IC[dof_joint(d)], K.Sw[d]);
+  for (int i = 0; i < nv; ++i)
+    for (int j = 0; j <= i; ++j) {
+      const int ji = dof_joint(i), jj = dof_joint(j);
+      S mij;
+      if (ji == jj) mij = dot6(K.Sw[i], Fd[j]);
+      else if (joint_ancestor(D, jj, ji)) mij = dot6(K.Sw[j], Fd[i]);
+      else mij = S(F(0));
+      store(i, j, mij);
+    }
+  for (int d = 0; d < nv; ++d) h[d] = dot6(K.Sw[d], Fb[dof_joint(d)]);
+}
+
+// Constrained forward dynamics of the lane (soa_dyn.constrained_fwd_dynamics_soa
+// with dim = 3): ddq (nv) and the contact forces f (3 nk, foot-major).
+template <class S>
+SMPC_HD void constrained_dynamics(const Dims& D, const real_t<S>* C, const FdKin<S>& K,
+                                  const S* v, const S* u, const real_t<S>* active,
+                                  const real_t<S>* ref_p, S* ddq, S* f) {
+  typedef real_t<S> F;
+  const int nv = D.nv, nk = D.nk, nc = 3 * nk;
+  S Lm[kMaxV * (kMaxV + 1) / 2], hb[kMaxV];
+  V6<S> aW[kMaxJ];
+  mass_bias(D, C, K, v, [&](int i, int j, const S& m) { Lm[tri(i, j)] = m; }, hb, aW);
 
   // contact Jacobians (LOCAL linear rows), J-dot v, the Baumgarte rows
   V3<S> J[kMaxK][kMaxV];
@@ -318,8 +331,7 @@ SMPC_HD void constrained_dynamics(const Dims& D, const real_t<S>* C, const FdKin
   S X[kMaxV][kMaxC + 1];
   for (int d = 0; d < nv; ++d) {
     for (int r = 0; r < nc; ++r) X[d][r] = J[r / 3][d][r % 3];
-    const S b = dot6(K.Sw[d], Fb[dof_joint(d)]);
-    X[d][nc] = (d < 6 ? S(F(0)) : u[d - 6]) - b;
+    X[d][nc] = (d < 6 ? S(F(0)) : u[d - 6]) - hb[d];
   }
   for (int c = 0; c <= nc; ++c) chol_solve(Lm, nv, &X[0][0], kMaxC + 1, c);
 

@@ -24,6 +24,13 @@ K5 `term_linearize` (csrc/linearize.cu) replaces
 `ProxDDPSolver._linearize_term`.
 K9 `tick_refs` (csrc/tick.cu) replaces the bookkeeping of
 `simple_mpc_tpu/mpc/fused.py` `FusedMPC._step` before the solve.
+K8 `qp_admm` (csrc/qp.cu) replaces `simple_mpc_tpu/id/qp.py` `solve_qp`,
+the ADMM QP of the inverse-dynamics layer (twin `id/qp.py`), and
+`id_assemble` (csrc/id.cu) its assembly
+`simple_mpc_tpu/id/kinodynamics_id.py` `KinodynamicsID._assemble_core`.
+K10 `sim_step` (csrc/sim.cu) replaces `simple_mpc_tpu/sim/simulator.py`
+`Simulator.step` (twin `Simulator.step_plain`); it and `id_assemble`
+include K7's device code (csrc/fulldyn.cuh).
 Each source file states what bounds the kernel on the card and what its
 design does about it; csrc/stage.cuh holds the rigid-body algebra the
 K1/K2/K5/K9 kernels share.
@@ -58,13 +65,14 @@ from .ops import soa
 from .ops import world as _world
 from .ops import soa_dyn
 from .ops.soa_dyn import chol_solve_unrolled, chol_unrolled
+from .id.qp import QPSolution, solve_qp
 from .solver.parallel_riccati import parallel_backward as parallel_riccati_backward_plain
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("riccati.cu", "parallel_riccati.cu", "rollout.cu", "linearize.cu", "fulldyn.cu",
-           "tick.cu")
+           "tick.cu", "qp.cu", "id.cu", "sim.cu")
 HEADERS = ("stage.cuh", "fulldyn.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -142,6 +150,9 @@ def _library() -> ctypes.CDLL:
             fd_dynamics=[P] * 6 + [I] + [P] * 3,
             term_linearize=[P] * 7 + [I] + [P] * 3,
             tick_refs=[P] * 12 + [I] * 6 + [D, D] + [P] * 8,
+            qp_admm=[P] * 7 + [I] * 4 + [D] * 3 + [P] * 5,
+            id_assemble=[P] * 10 + [I] * 4 + [P] * 9,
+            sim_step=[P] * 5 + [I] + [D] * 3 + [P] * 5,
         )
         for name, args in signatures.items():
             for dt in ("f32", "f64"):
@@ -433,20 +444,25 @@ def _np64(t) -> np.ndarray:
     return t.detach().to(device="cpu", dtype=torch.float64).numpy()
 
 
-def _require_stage_layout(ocp):
+def _require_body_layout(m, nk: int, what: str = "the stage kernels"):
     """The kernels' model: a free-flyer root, 1-dof joints in tree order
-    with q/v indices in joint order, point feet."""
-    m = ocp.model
+    with q/v indices in joint order, at most MAX_JOINTS joints and MAX_FEET
+    feet."""
     nj = m.njoints
     ok = (m.joint_types[0] == FREE and all(t != FREE for t in m.joint_types[1:])
           and all(m.parents[j] < j for j in range(1, nj))
           and all(m.idx_q[j] == 6 + j and m.idx_v[j] == 5 + j for j in range(1, nj)))
     if not ok:
-        raise NotImplementedError("the stage kernels take a free-flyer root followed by "
+        raise NotImplementedError(f"{what} take a free-flyer root followed by "
                                   "1-dof joints in tree order")
-    if nj > MAX_JOINTS or ocp.nk > MAX_FEET:
-        raise NotImplementedError(f"the stage kernels take at most {MAX_JOINTS} joints "
+    if nj > MAX_JOINTS or nk > MAX_FEET:
+        raise NotImplementedError(f"{what} take at most {MAX_JOINTS} joints "
                                   f"and {MAX_FEET} feet")
+
+
+def _require_stage_layout(ocp):
+    """The stage kernels' model (`_require_body_layout`) with point feet."""
+    _require_body_layout(ocp.model, ocp.nk)
     if ocp.fs != 3:
         raise NotImplementedError("the stage kernels take point feet (force_size 3); "
                                   "6D contacts are not ported")
@@ -501,6 +517,15 @@ def _stage_consts(ocp, dtype, device):
         kp_on=int(bool(np.any(kp))),
         parent=list(m.parents), qidx=list(m.idx_q), vidx=list(m.idx_v),
         frame_parent=[int(tab.fparent[f]) for f in sel])
+    buf, dims_c = _pack_consts(dims, blocks, dtype, device)
+    _consts_cache[key] = (ocp, tab, buf, dims_c)
+    return buf, dims_c
+
+
+def _pack_consts(dims: dict, blocks: dict, dtype, device):
+    """(the blocks concatenated on `device` in `dtype`, Dims as a ctypes int
+    array): each block's offset goes to `dims` under its name; Dims fields
+    that `dims` lacks are 0."""
     flat, off = [], 0
     for name, arr in blocks.items():
         a = np.asarray(arr, np.float64).reshape(-1)
@@ -509,11 +534,10 @@ def _stage_consts(ocp, dtype, device):
         off += a.shape[0]
     ints = []
     for name, n in _DIMS_FIELDS:
-        v = np.atleast_1d(np.asarray(dims[name], np.int64))
+        v = np.atleast_1d(np.asarray(dims.get(name, 0), np.int64))
         ints.extend(v.tolist() + [0] * (n - v.shape[0]))
     dims_c = (ctypes.c_int * _DIMS_INTS)(*ints)
     buf = torch.as_tensor(np.concatenate(flat), dtype=dtype, device=device)
-    _consts_cache[key] = (ocp, tab, buf, dims_c)
     return buf, dims_c
 
 
@@ -988,9 +1012,212 @@ def tick_refs(fused, carry, x_meas):
 tick_refs.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# The closed loop's kernels: K8 (qp_admm, id_assemble) and K10 (sim_step)
+# ---------------------------------------------------------------------------
+
+QP_MAX_N = 64  # qp.cu kMaxN: variables (Go2 30; a Talos-sized ID about 50)
+QP_MAX_M = 256  # qp.cu kMaxM: constraint rows (Go2 66, 78 with motion equalities)
+_body_cache: dict = {}
+
+
+def _body_consts(model, frame_ids, nk, dtype, device, kp=0.0, kd=0.0, prox=1e-9):
+    """(packed constants, Dims) of the rigid-body kernels csrc/id.cu and
+    csrc/sim.cu: the model's joint tree and inertias, the selected frames
+    `frame_ids` (the nk feet first, then any other frame), the Baumgarte
+    gains kp, kd on every contact row and the Delassus diagonal's proximal
+    term max(prox, 50 eps(dtype)), as `constrained_fwd_dynamics_soa` takes
+    it."""
+    tab = _world.tables(model)
+    key = (id(model), id(tab), tuple(frame_ids), nk, kp, kd, prox, dtype, device)
+    hit = _body_cache.get(key)
+    if hit is not None and hit[0] is tab:
+        return hit[1], hit[2]
+    nj = model.njoints
+    axes = np.zeros((nj, 3))
+    prism = np.zeros(nj)
+    axes[tab.one_dof] = tab.axes
+    prism[tab.one_dof] = tab.is_prismatic
+    sel = np.asarray(frame_ids)
+    blocks = dict(
+        o_jR=tab.jR, o_jp=tab.jp, o_axis=axes, o_prism=prism, o_mass=tab.masses,
+        o_com=tab.coms, o_Iloc=tab.I_loc, o_fR=tab.fR[sel], o_fp=tab.fp[sel],
+        o_scalars=np.array([tab.total_mass, 0.0, 0.0, 0.0]),
+        o_kp=np.full(3 * nk, float(kp)), o_kd=np.full(3 * nk, float(kd)),
+        o_Icom=soa_dyn._static_body_params(model)[2],
+        o_grav=np.asarray(model.gravity, np.float64),
+        o_prox=np.array([max(prox, 50.0 * torch.finfo(dtype).eps)]))
+    dims = dict(nj=nj, nq=model.nq, nv=model.nv, nu=model.nv - 6, nk=nk, fs=3,
+                kp_on=int(kp != 0.0), parent=list(model.parents), qidx=list(model.idx_q),
+                vidx=list(model.idx_v), frame_parent=[int(tab.fparent[f]) for f in sel])
+    buf, dims_c = _pack_consts(dims, blocks, dtype, device)
+    _body_cache[key] = (tab, buf, dims_c)
+    return buf, dims_c
+
+
+def _qp_cuda(H, g, A, l, u, iters, rho, sigma, alpha, z0, y0):
+    dtype, device = H.dtype, H.device
+    nb, m, n = A.shape
+    if n > QP_MAX_N or m > QP_MAX_M:
+        raise NotImplementedError(f"qp_admm takes at most {QP_MAX_N} variables and "
+                                  f"{QP_MAX_M} rows, got {n} and {m}")
+    shapes = dict(H=(nb, n, n), g=(nb, n), A=(nb, m, n), l=(nb, m), u=(nb, m))
+    warm = dict(z0=(z0, (nb, n)), y0=(y0, (nb, m)))
+    shapes.update({k: s for k, (x, s) in warm.items() if x is not None})
+    t = _check(dict(H=H, g=g, A=A, l=l, u=u,
+                    **{k: x for k, (x, _) in warm.items() if x is not None}),
+               shapes, dtype, device)
+    out = QPSolution(*(torch.empty(s, dtype=dtype, device=device)
+                       for s in ((nb, n), (nb, m), (nb,), (nb,))))
+    fn = getattr(_library(), f"smpc_qp_admm_{_suffix(dtype)}")
+    with torch.cuda.device(device):
+        err = fn(*[t[k].data_ptr() for k in ("H", "g", "A", "l", "u")],
+                 *[t[k].data_ptr() if k in t else None for k in ("z0", "y0")],
+                 nb, n, m, int(iters), float(rho), float(sigma), float(alpha),
+                 *[o.data_ptr() for o in out], _stream(device))
+    _raise_on(err, "qp_admm")
+    return out
+
+
+def qp_admm(H, g, A, l, u, iters: int = 100, rho: float = 0.1, sigma: float = 1e-6,
+            alpha: float = 1.6, z0=None, y0=None) -> QPSolution:
+    """K8's QP: `iters` steps of over-relaxed ADMM on B problems.  H (B,n,n),
+    g (B,n), A (B,m,n), l, u (B,m), optional warm start z0 (B,n), y0 (B,m).
+    Returns `QPSolution` z (B,n), y (B,m), prim_res, dual_res (B,)."""
+    dev = H.device
+    if dev.type == "cpu":
+        return solve_qp(H, g, A, l, u, iters, rho, sigma, alpha, z0, y0)
+    if dev.type == "cuda":
+        out = _qp_cuda(H, g, A, l, u, iters, rho, sigma, alpha, z0, y0)
+        qp_admm.launches += 1
+        return out
+    raise RuntimeError(f"qp_admm: no kernel for device {dev}")
+
+
+qp_admm.launches = 0
+
+ID_OUT = ("H", "g", "A", "l", "u", "M", "h", "JcT")
+_id_cache: dict = {}
+
+
+def _id_rows(idsolver) -> int:
+    """Constraint rows of the ID's QP: the 6 base dynamics rows, the contact
+    motion equalities (with `contact_motion_equality`), the inactive-force
+    rows, the cones, the normal-force bounds, the joint and torque boxes."""
+    nk, fd, nu = idsolver.nk, idsolver.fdim, idsolver.nu
+    eq = nk * fd if idsolver.settings.contact_motion_equality else 0
+    return 6 + eq + nk * fd + nk * idsolver.n_cone + nk + 2 * nu
+
+
+def _id_params(idsolver, dtype, device):
+    """The ID kernel's task constants (csrc/id.cu `IdParams` order) on
+    `device`, made once per (ID, dtype, device)."""
+    key = (id(idsolver), dtype, device)
+    hit = _id_cache.get(key)
+    if hit is not None and hit[0] is idsolver:
+        return hit[1]
+    s, m = idsolver.settings, idsolver.model
+    kd = [2.0 * np.sqrt(k) for k in (s.kp_base, s.kp_posture)]
+    kd.append(2.0 * np.sqrt(s.kp_contact) if s.kp_contact > 0 else 0.0)
+    flat = np.concatenate([
+        [s.kp_base, s.kp_posture, s.kp_contact, *kd, s.w_base, s.w_posture,
+         s.w_contact_motion, s.w_contact_force, idsolver.min_f, idsolver.max_f,
+         idsolver.dt, idsolver.dt ** 2],
+        np.asarray(idsolver._cone_mat).reshape(-1),
+        m.velocity_limit[6:], m.lower_limit[7:], m.upper_limit[7:], m.effort_limit[6:]])
+    buf = torch.as_tensor(flat, dtype=dtype, device=device)
+    _id_cache[key] = (idsolver, buf)
+    return buf
+
+
+def _id_cuda(idsolver, q, v, targets):
+    from .id.kinodynamics_id import KinodynamicsID
+
+    if type(idsolver)._extra_tasks is not KinodynamicsID._extra_tasks:
+        raise NotImplementedError("id_assemble takes the KinodynamicsID task set")
+    m = idsolver.model
+    _require_body_layout(m, idsolver.nk, "id_assemble")
+    dtype, device = q.dtype, q.device
+    nb, nv, nk, nz = q.shape[0], idsolver.nv, idsolver.nk, idsolver.nz
+    C, dims = _body_consts(m, idsolver.feet_fids + [idsolver.mh.base_frame_id], nk, dtype,
+                           device)
+    P = _id_params(idsolver, dtype, device)
+    rows = _id_rows(idsolver)
+    shapes = dict(q=(nb, m.nq), v=(nb, nv), q_t=(nb, m.nq), v_t=(nb, nv), a_t=(nb, nv),
+                  contacts=(nb, nk), f_t=(nb, nk, 3))
+    t = _check(dict(q=q, v=v, **targets), shapes, dtype, device)
+    out = {k: torch.empty(s, dtype=dtype, device=device) for k, s in (
+        ("H", (nb, nz, nz)), ("g", (nb, nz)), ("A", (nb, rows, nz)), ("l", (nb, rows)),
+        ("u", (nb, rows)), ("M", (nb, nv, nv)), ("h", (nb, nv)), ("JcT", (nb, nv, 3 * nk)))}
+    fn = getattr(_library(), f"smpc_id_assemble_{_suffix(dtype)}")
+    with torch.cuda.device(device):
+        err = fn(ctypes.addressof(dims), C.data_ptr(), P.data_ptr(),
+                 *[t[k].data_ptr() for k in shapes], nb,
+                 int(idsolver.settings.contact_motion_equality), idsolver.n_cone, rows,
+                 *[out[k].data_ptr() for k in ID_OUT], _stream(device))
+    _raise_on(err, "id_assemble")
+    return tuple(out[k] for k in ID_OUT)
+
+
+def id_assemble(idsolver, q, v, targets):
+    """K8's assembly: the inverse-dynamics QP of B robots (H, g, A, l, u)
+    with M, h and Jc' for the torques.  q (B,nq), v (B,nv), targets
+    q_t (B,nq), v_t, a_t (B,nv), contacts (B,nk), f_t (B,nk,3)."""
+    dev = q.device
+    if dev.type == "cpu":
+        return idsolver._assemble_core(q, v, targets)
+    if dev.type == "cuda":
+        out = _id_cuda(idsolver, q, v, targets)
+        id_assemble.launches += 1
+        return out
+    raise RuntimeError(f"id_assemble: no kernel for device {dev}")
+
+
+id_assemble.launches = 0
+
+
+def _sim_cuda(sim, q, v, tau):
+    from .sim.simulator import SimStep
+
+    s, m = sim.settings, sim.model
+    _require_body_layout(m, sim.nk, "sim_step")
+    dtype, device = q.dtype, q.device
+    nb, nk = q.shape[0], sim.nk
+    C, dims = _body_consts(m, sim.feet_fids, nk, dtype, device, s.baumgarte_kp,
+                           s.baumgarte_kd)
+    shapes = dict(q=(nb, m.nq), v=(nb, m.nv), tau=(nb, m.nv - 6))
+    t = _check(dict(q=q, v=v, tau=tau), shapes, dtype, device)
+    out = SimStep(*(torch.empty(sh, dtype=dtype, device=device) for sh in (
+        (nb, m.nq), (nb, m.nv), (nb, nk, 3), (nb, 2, nk))))
+    fn = getattr(_library(), f"smpc_sim_step_{_suffix(dtype)}")
+    with torch.cuda.device(device):
+        err = fn(ctypes.addressof(dims), C.data_ptr(), *[t[k].data_ptr() for k in shapes],
+                 nb, float(s.dt), float(s.ground_height), float(s.contact_margin),
+                 *[o.data_ptr() for o in out], _stream(device))
+    _raise_on(err, "sim_step")
+    return out
+
+
+def sim_step(sim, q, v, tau):
+    """K10: one step of the rigid-contact simulator for B robots.  q (B,nq),
+    v (B,nv), tau (B,nu).  Returns `SimStep` q, v, the world contact forces
+    f_w (B,nk,3) and the contact masks of the two solves (B,2,nk)."""
+    dev = q.device
+    if dev.type == "cpu":
+        return sim.step_plain(q, v, tau)
+    if dev.type == "cuda":
+        out = _sim_cuda(sim, q, v, tau)
+        sim_step.launches += 1
+        return out
+    raise RuntimeError(f"sim_step: no kernel for device {dev}")
+
+
+sim_step.launches = 0
+
+
 KERNELS = (stage_linearize, stage_eval, riccati_backward, parallel_riccati_backward,
            linear_rollout, term_linearize, tick_refs, fd_stage_linearize, fd_stage_eval,
-           fd_dynamics)
+           fd_dynamics, qp_admm, id_assemble, sim_step)
 
 
 def reset_launches():

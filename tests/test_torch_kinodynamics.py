@@ -238,8 +238,14 @@ def test_entry_points_default_to_the_card():
                                               make_go2_kinodynamics)
     from simple_mpc_tpu_torch.ocp.base import OCPHandler
     from simple_mpc_tpu_torch.ocp.fulldynamics import FullDynamicsOCP
+    from simple_mpc_tpu_torch.examples import go2_kinodynamics
+    from simple_mpc_tpu_torch.id.kinodynamics_id import KinodynamicsID
     from simple_mpc_tpu_torch.ocp.kinodynamics import KinodynamicsOCP
+    from simple_mpc_tpu_torch.sim.simulator import Simulator
+    from simple_mpc_tpu_torch.utils.friction import FrictionCompensation
 
     for fn in (make_go2_kinodynamics, make_go2_fused, make_go2_fulldynamics,
-               KinodynamicsOCP.__init__, FullDynamicsOCP.__init__, OCPHandler.__init__):
+               KinodynamicsOCP.__init__, FullDynamicsOCP.__init__, OCPHandler.__init__,
+               KinodynamicsID.__init__, Simulator.__init__, FrictionCompensation.__init__,
+               go2_kinodynamics.setup, go2_kinodynamics.main):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn

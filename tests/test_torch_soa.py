@@ -273,7 +273,10 @@ def test_spaces(models):
 
 def test_port_does_not_import_jax():
     code = ("import sys, simple_mpc_tpu_torch, simple_mpc_tpu_torch.kernels,"
-            " simple_mpc_tpu_torch.ocp.fulldynamics;"
+            " simple_mpc_tpu_torch.ocp.fulldynamics, simple_mpc_tpu_torch.id.qp,"
+            " simple_mpc_tpu_torch.id.kinodynamics_id, simple_mpc_tpu_torch.sim.simulator,"
+            " simple_mpc_tpu_torch.utils.interpolator, simple_mpc_tpu_torch.utils.friction,"
+            " simple_mpc_tpu_torch.examples.loop, simple_mpc_tpu_torch.examples.go2_kinodynamics;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m.startswith('simple_mpc_tpu.') or m == 'simple_mpc_tpu'];"
             "assert not bad, bad")
