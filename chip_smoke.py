@@ -75,16 +75,36 @@ Phases, each printing one line; any failure raises and exits non-zero:
                simulator) and of the inner step with a tenth of the
                references; the three kernels' times and a trace of 10
                inner steps.
-Phases 4-10 and 12 drive the main paths.  The kernels' launch counters are
-zeroed just before each of them (after the latency engine's and the closed
-loop's set-up, whose first solves run before the path) and read just after
-(a `<phase>_launches` line): each must have launched every kernel it runs
-(phase 7 the six of the serial tick; phase 8 the same with K6 in place of
-K3, and K3 never; phases 9-10 the full-dynamics stage kernels and never the
-kinodynamics ones; phase 12 the five solver kernels exactly once a tick and
-the three closed-loop kernels exactly once an inner step).  The kernel
-summary's `launches` is the sum over those eight runs; the launches of
-phases 3 and 11 and of phase 12's timings are not counted.  Its `bound_ms` is the larger of the bytes each
+ 13. talos_kernels — (after phase 11) the wide stage kernels of
+               csrc/linearize_wide.cu (K1+K2, K1 on the candidates, K5 for
+               6D contacts and 23 joints) against their twins on a
+               perturbed Talos kinodynamics T=100, B=128 problem with the
+               feet lifted in turns, f32 (gated against the twin in f64 at
+               F32_WIDE_TOL) and f64, and on a B=2, T=10 one with the
+               wrench cones; K3 and K4 at Talos widths (nx=56, nu=34);
+               times, bounds, registers and stack (phase_talos_kernels).
+ 14. talos_batched — 30 one-iteration solves of B=128 Talos T=100 problems,
+               f32, from the committed fixture's point perturbed: last max
+               prim_res < 5e-4; solves/s.
+ 15. talos_fixture — f32 re-solve of Talos T=100 against
+               talos_kinodynamics_T100.npz to the f32 floor: max|Δu| <=
+               3e-3, max|Δx| <= 1e-3; the fixture generator's f64 solve on
+               the card: max|Δu| <= 1e-4 (phase_talos_fixture).
+ 16. talos_mpc — the host MPC on Talos T=100 (examples/talos_kinodynamics.py's
+               biped gait and MPC settings), f32, 30 self-fed ticks: finite,
+               no divergence; tick p50/p99 and one tick's trace.
+Phases 4-10, 12 and 14-16 drive the main paths.  The kernels' launch
+counters are zeroed just before each of them (after the latency engine's and
+the closed loop's set-up, whose first solves run before the path) and read
+just after (a `<phase>_launches` line): each must have launched every kernel
+it runs (phase 7 the six of the serial tick; phase 8 the same with K6 in
+place of K3, and K3 never; phases 9-10 the full-dynamics stage kernels and
+never the kinodynamics ones; phase 12 the five solver kernels exactly once a
+tick and the three closed-loop kernels exactly once an inner step; phases
+14-16 the three wide kernels, K3 and K4, and never the Go2 stage kernels; no
+Go2 phase a wide kernel).  The kernel summary's `launches` is the sum over
+those eleven runs; the launches of phases 3, 11 and 13 and of phase 12's
+timings are not counted.  Its `bound_ms` is the larger of the bytes each
 kernel moves (inputs read once, outputs written once, at the summary's
 shape) over 3.35 TB/s and its counted FLOPs over 67 TFLOP/s (H100 SXM,
 FP32 outside the tensor cores); FLOPs of the rigid-body arithmetic of K1,
@@ -123,10 +143,15 @@ LATENCY_KERNELS = ("stage_linearize", "stage_eval", "parallel_riccati_backward",
                    "linear_rollout", "term_linearize", "tick_refs")
 FD_SOLVER_KERNELS = ("fd_stage_linearize", "fd_stage_eval", "riccati_backward",
                      "linear_rollout", "term_linearize")
+WIDE_KERNELS = ("wide_stage_linearize", "wide_stage_eval", "wide_term_linearize")
+TALOS_SOLVER_KERNELS = WIDE_KERNELS + ("riccati_backward", "linear_rollout")
+GO2_STAGE_KERNELS = ("stage_linearize", "stage_eval", "term_linearize")
 PATH_KERNELS = dict(batched=SOLVER_KERNELS, fixture=SOLVER_KERNELS, mpc=SOLVER_KERNELS,
                     fused=SOLVER_KERNELS + ("tick_refs",), latency=LATENCY_KERNELS,
                     fd_batched=FD_SOLVER_KERNELS,
-                    fd_mpc=FD_SOLVER_KERNELS + ("fd_dynamics",))
+                    fd_mpc=FD_SOLVER_KERNELS + ("fd_dynamics",),
+                    talos_batched=TALOS_SOLVER_KERNELS, talos_fixture=TALOS_SOLVER_KERNELS,
+                    talos_mpc=TALOS_SOLVER_KERNELS)
 PATH_KERNELS["closed_loop"] = SOLVER_KERNELS + ("id_assemble", "qp_admm", "sim_step")
 # launches of a closed-loop run: each tick's MPC iteration launches each
 # solver kernel once, each inner step each of the three once
@@ -137,8 +162,27 @@ PATH_ABSENT = dict(latency=("riccati_backward",),
                    fd_batched=("stage_linearize", "stage_eval"),
                    fd_mpc=("stage_linearize", "stage_eval"),
                    closed_loop=("parallel_riccati_backward", "tick_refs", "fd_stage_linearize",
-                                "fd_stage_eval", "fd_dynamics"))
+                                "fd_stage_eval", "fd_dynamics"),
+                   talos_batched=GO2_STAGE_KERNELS, talos_fixture=GO2_STAGE_KERNELS,
+                   talos_mpc=GO2_STAGE_KERNELS)
+# no Go2 path launches a wide kernel
+for _path in ("batched", "fixture", "mpc", "fused", "latency", "fd_batched", "fd_mpc",
+              "closed_loop"):
+    PATH_ABSENT[_path] = PATH_ABSENT.get(_path, ()) + WIDE_KERNELS
 FD_MPC_T = 50  # examples/go2_fulldynamics.py's horizon
+TALOS_CONE_B, TALOS_CONE_T = 2, 10  # the wrench-cone case of phase_talos_kernels
+# most multiplier rounds of the Talos f32 fixture re-solve: two
+# (phase_fixture's recipe) leave the f32 iterate short of its floor
+# (max|us - us*| 4.18e-3 after two rounds, 1.28e-3 at its fixed point after
+# five, on an NVIDIA H100 80GB HBM3 at 700 W; JAX's own f32 pass on a CPU
+# 4.6e-3 after two, tests/test_torch_talos_fixture.py)
+TALOS_F32_ROUNDS = 8
+# f32 wide stage kernels vs their twin in f64 (see phase_talos_kernels): about
+# ten times the f32 twin's own distance from the f64 twin in that phase's
+# recipe (CPU, B=4, T=100 and the cone case: 5.4e-6, 1.9e-7 and 4.5e-5, the
+# candidates' gaps and costs losing most)
+F32_WIDE_TOL = dict(wide_stage_linearize=5e-5, wide_term_linearize=2e-6,
+                    wide_stage_eval=5e-4)
 CLOSED_LOOP_T = 50  # examples/go2_kinodynamics.py's horizon
 CLOSED_LOOP_TICKS = 160  # tests/test_walking.py:181
 # f32 closed-loop kernels vs their twin in f64 (see phase_id_sim_kernels)
@@ -574,6 +618,16 @@ def k7_flops(nv, nc):
             + 2 * nc * nc + 2 * nv * nc)
 
 
+def as64(args):
+    """The arguments with every floating tensor (in param tuples too) in
+    f64."""
+    from simple_mpc_tpu_torch.ocp.base import tree_map
+
+    def leaf(a):
+        return a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+    return tuple(tree_map(leaf, a) for a in args)
+
+
 def phase_fd_kernels(device):
     """The full-dynamics kernels against their twins on the card, at the
     full-dynamics main path's shapes (Go2 T=100, B=128, perturbed standing
@@ -608,13 +662,6 @@ def phase_fd_kernels(device):
         alphas = torch.as_tensor(ALPHAS, dtype=dtype, device=device)
         errs, abs_err, times, vs64 = {}, {}, {}, {}
         f32 = dtype == torch.float32
-
-        def as64(args):
-            """The arguments with every floating tensor (in param tuples too)
-            in f64."""
-            def leaf(a):
-                return a.double() if torch.is_tensor(a) and a.is_floating_point() else a
-            return tuple(tree_map(leaf, a) for a in args)
 
         def compare(name, got, want, want64=None):
             """Kernel `got` against its twin `want`; in f32 also against the
@@ -1416,10 +1463,360 @@ def phase_closed_loop(device, mpc, mh, idq):
           tick_refs_trace=refs_trace, interpolate_state_host_ms=interp_ms)
 
 
+def talos_case(device, dtype, nb, nT, seed, force_cone=False):
+    """Talos kinodynamics (23 joints, two 6D quad feet) at half_sitting,
+    horizon nT, batched nb times: the left foot lifted on stages 1, 5,
+    9, ..., the right on stages 3, 7, ..., both down elsewhere; a warm start
+    (states, forces and torques, joint accelerations) and multipliers
+    perturbed from numpy with a fixed seed.  Returns (ocp, problems, xs, us,
+    lam_eq, lam_in)."""
+    from simple_mpc_tpu_torch.configs import make_talos_kinodynamics
+    from simple_mpc_tpu_torch.ocp.base import Problem
+    from simple_mpc_tpu_torch.parallel import tile_problem
+
+    ocp, mh, x0 = make_talos_kinodynamics(nT, device=device, dtype=dtype,
+                                          force_cone=force_cone)
+    sp = ocp.problem.stage_params
+    act = sp.contact_active.clone()
+    act[1::4, 0] = 0.0
+    act[3::4, 1] = 0.0
+    ocp.problem = Problem(x0=ocp.problem.x0, term_params=ocp.problem.term_params,
+                          stage_params=sp._replace(contact_active=act))
+    rng = np.random.default_rng(seed)
+    xs = np.repeat(x0[None, None], nb, 0).repeat(nT + 1, 1)
+    xs = xs + 0.01 * rng.normal(size=xs.shape)
+    xs[..., 3:7] /= np.linalg.norm(xs[..., 3:7], axis=-1, keepdims=True)
+    u0 = ocp.get_reference_control(0).double().cpu().numpy()
+    scale = np.where(np.abs(u0) > 1.0, 20.0, 1.0)  # the normal forces
+    us = u0 + scale * rng.normal(size=(nb, nT, ocp.nu))
+    lam_eq = 0.1 * rng.normal(size=(nb, nT, ocp.n_eq))
+    lam_in = 0.1 * np.abs(rng.normal(size=(nb, nT, ocp.n_in)))
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
+    return ocp, tile_problem(ocp.problem, nb), t(xs), t(us), t(lam_eq), t(lam_in)
+
+
+def phase_talos_kernels(device, ptxas_log=""):
+    """The three wide stage kernels (csrc/linearize_wide.cu) against their
+    twins on the card, at the Talos main path's shapes (T=100, B=128, the
+    perturbed problem of `talos_case`, feet lifted in turns), f32 and f64,
+    and once more on a B=2, T=10 problem with the two 17-row wrench cones
+    on.  Gates, as max|a - b| / max|b|: in f64 the kernel within 1e-10 of
+    the twin; in f32 the kernel within F32_WIDE_TOL (per kernel) of the twin
+    evaluated in f64 on the same (f32-rounded) inputs, the f32 twin's own
+    distance printed beside it.  K3 (riccati_backward) and K4 (linear_rollout) at
+    Talos widths (nx=56, nu=34) on the twin's linearization: gated in f64
+    (K4 at 1e-10; K3 within ten times the twin's own spread under a 1e-15
+    relative perturbation of its inputs), their f32 readings against the
+    f32 twins printed.  Times:
+    CUDA-event medians (the twins of K1+K2 and K5 on SLOW_REPS, K3's on
+    one call), f32 twins only; the roofline bound at the main path's shapes; registers
+    and stack of the three kernels from the ptxas log."""
+    from simple_mpc_tpu_torch import kernels
+    from simple_mpc_tpu_torch.ocp.base import tree_map
+    from simple_mpc_tpu_torch.solver.proxddp import ProxDDPSolver, SolverSettings
+
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        t0 = time.perf_counter()
+        f32 = dtype == torch.float32
+        errs, abs_err, vs64, times = {}, {}, {}, {}
+
+        def compare(name, got, want, want64):
+            keep = [i for i, b in enumerate(want) if b.numel()]
+            check(all(torch.isfinite(got[i]).all() for i in keep), f"{name} {dtype}: non-finite")
+            ref = want64 if f32 else want
+            tol = F32_WIDE_TOL[name] if f32 else 1e-10
+            e = max(rel_err(got[i], ref[i]) for i in keep)
+            check(np.isfinite(e) and e <= tol, f"{name} {dtype}: {e:.3e} > {tol:.1e}"
+                  + (" from the f64 twin" if f32 else ""))
+            errs[name] = max(errs.get(name, 0.0), e)
+            abs_err[name] = max([abs_err.get(name, 0.0)] + [
+                float((got[i].double() - want[i].double()).abs().max()) for i in keep])
+            if f32:
+                twin = max(rel_err(want[i], want64[i]) for i in keep)
+                old = vs64.get(name, (0.0, 0.0))
+                vs64[name] = (max(old[0], e), max(old[1], twin))
+
+        def case(nb, nT, force_cone):
+            ocp, probs, xs, us, lam_eq, lam_in = talos_case(device, dtype, nb, nT, seed=9,
+                                                            force_cone=force_cone)
+            solver = ProxDDPSolver(ocp, SolverSettings(mu_init=1e-6, alphas=ALPHAS,
+                                                       u_scale="auto"))
+            eps = torch.finfo(dtype).eps
+            mu = torch.full((nb,), max(1e-6, eps ** 0.5), dtype=dtype, device=device)
+            lam_term = torch.zeros((nb, ocp.n_term_eq), dtype=dtype, device=device)
+            sp = tree_map(torch.Tensor.contiguous, probs.stage_params)
+            tp = tree_map(torch.Tensor.contiguous, probs.term_params)
+            lin_args = (solver, sp, xs, us, lam_eq, lam_in, mu)
+            lin = kernels.wide_stage_linearize(*lin_args)
+            lin0 = kernels._linearize_traj_plain(*lin_args)
+            lin64 = kernels._linearize_traj_plain(*as64(lin_args)) if f32 else None
+            compare("wide_stage_linearize", [lin[k] for k in kernels.LIN_KEYS],
+                    [lin0[k] for k in kernels.LIN_KEYS],
+                    lin64 and [lin64[k] for k in kernels.LIN_KEYS])
+            term_args = (solver, xs[:, -1], tp, lam_term, mu)
+            term = kernels.wide_term_linearize(*term_args)
+            Vx, Vxx = kernels._linearize_term_plain(*term_args)
+            compare("wide_term_linearize", term, (Vx, Vxx),
+                    kernels._linearize_term_plain(*as64(term_args)) if f32 else None)
+            reg = max(solver.settings.reg_init, 50 * eps)
+            ks0, Ks0, Qus0 = kernels.riccati_backward_plain(lin0, Vx, Vxx, reg)
+            dx0 = solver.space.difference(xs[:, 0], probs.x0)
+            alphas = torch.as_tensor(ALPHAS, dtype=dtype, device=device)
+            xs_c, us_c = solver._candidates(xs, us, lin0, ks0, Ks0, dx0, alphas)
+            eval_args = (solver, sp, xs_c, us_c, lam_eq, lam_in, mu)
+            ev = kernels.wide_stage_eval(*eval_args)
+            compare("wide_stage_eval", ev, kernels._eval_traj_plain(*eval_args),
+                    kernels._eval_traj_plain(*as64(eval_args)) if f32 else None)
+            return dict(ocp=ocp, solver=solver, lin_args=lin_args, lin=lin, lin0=lin0,
+                        term_args=term_args, term=term, Vx=Vx, Vxx=Vxx, reg=reg,
+                        ks0=ks0, Ks0=Ks0, Qus0=Qus0, dx0=dx0, alphas=alphas,
+                        eval_args=eval_args, ev=ev)
+
+        cone = case(TALOS_CONE_B, TALOS_CONE_T, True)
+        check(cone["ocp"].n_in == 44 + 34, f"talos cones: {cone['ocp'].n_in} inequality rows")
+        c = case(B, T, False)
+        # K3 and K4 at Talos widths on the twin's linearization
+        lin0, Vx, Vxx, reg = c["lin0"], c["Vx"], c["Vxx"], c["reg"]
+        roll_args = (lin0["A"], lin0["B"], lin0["d"], c["ks0"], c["Ks0"], c["dx0"],
+                     c["alphas"])
+        k3 = kernels.riccati_backward(lin0, Vx, Vxx, reg)
+        k3_0 = (c["ks0"], c["Ks0"], c["Qus0"].abs().amax(dim=(1, 2)))
+        k4 = kernels.linear_rollout(*roll_args)
+        k4_0 = kernels.linear_rollout_plain(*roll_args)
+        k34 = dict(riccati_backward=max(rel_err(a, b) for a, b in zip(k3, k3_0)),
+                   linear_rollout=max(rel_err(a, b) for a, b in zip(k4, k4_0)))
+        if not f32:
+            # K3 on this linearization is ill conditioned (AL weights 1/mu =
+            # 1e6 beside the 1e5 foot weights): the kernel must agree with
+            # the twin within 10x the twin's own response to a 1e-15
+            # relative perturbation of its inputs, as K6 on the Go2 data
+            g64 = torch.Generator(device=device).manual_seed(0)
+            noisy = {k: v * (1 + 1e-15 * torch.randn(v.shape, generator=g64, dtype=dtype,
+                                                     device=device)) for k, v in lin0.items()}
+            k3_n = kernels.riccati_backward_plain(noisy, Vx, Vxx, reg)
+            k34["riccati_backward_twin_spread"] = max(
+                rel_err(a, b) for a, b in zip((k3_n[0], k3_n[1], k3_n[2].abs().amax(dim=(1, 2))),
+                                              k3_0))
+            check(k34["riccati_backward"] <= 10 * k34["riccati_backward_twin_spread"] + 1e-12
+                  and k34["linear_rollout"] <= 1e-10, f"K3/K4 at Talos widths, f64: {k34}")
+        slow = SLOW_REPS
+        times = dict(
+            wide_stage_linearize=cuda_ms(lambda: kernels.wide_stage_linearize(*c["lin_args"]),
+                                         REPS),
+            wide_term_linearize=cuda_ms(lambda: kernels.wide_term_linearize(*c["term_args"]),
+                                        REPS),
+            wide_stage_eval=cuda_ms(lambda: kernels.wide_stage_eval(*c["eval_args"]), REPS),
+            riccati_backward=cuda_ms(lambda: kernels.riccati_backward(lin0, Vx, Vxx, reg), REPS),
+            linear_rollout=cuda_ms(lambda: kernels.linear_rollout(*roll_args), REPS))
+        if f32:
+            plain = dict(
+                wide_stage_linearize=cuda_ms(
+                    lambda: kernels._linearize_traj_plain(*c["lin_args"]), slow),
+                wide_term_linearize=cuda_ms(
+                    lambda: kernels._linearize_term_plain(*c["term_args"]), slow),
+                wide_stage_eval=cuda_ms(lambda: kernels._eval_traj_plain(*c["eval_args"]),
+                                        slow),
+                riccati_backward=cuda_ms(  # ~13 s a call: one timed call
+                    lambda: kernels.riccati_backward_plain(lin0, Vx, Vxx, reg), 1),
+                linear_rollout=cuda_ms(lambda: kernels.linear_rollout_plain(*roll_args), REPS))
+            times = {k: (v, plain[k]) for k, v in times.items()}
+        ocp, xs = c["ocp"], c["lin_args"][2]
+        nx, nu = c["solver"].space.ndx, ocp.nu
+        n_rows = ocp._const(xs)["w"].shape[0] + ocp.n_eq + ocp.n_in
+        n_term = ocp._const(xs)["w_term"].shape[0] + ocp.n_term_eq
+        na = len(ALPHAS)
+        # per scenario: (counted FLOPs, bytes read and written), as phase_kernels
+        per = dict(
+            wide_stage_linearize=(T * 2 * n_rows * (nx * nx + nu * nu + nu * nx + nx + nu),
+                                  nbytes((c["lin_args"][1:], c["lin"]))),
+            wide_term_linearize=(2 * n_term * (nx * nx + nx),
+                                 nbytes((c["term_args"][1:], c["term"]))),
+            wide_stage_eval=(0, nbytes((c["eval_args"][1:], c["ev"]))),
+            riccati_backward=(riccati_flops(1, T, nx, nu),
+                              nbytes((lin0, Vx, Vxx, c["ks0"], c["Ks0"], c["Qus0"]))),
+            linear_rollout=(na * T * (4 * nu * nx + 2 * nx * nx + 2 * nu + 2 * nx),
+                            nbytes((roll_args, k4))))
+        bounds = {k: roofline(f * B, m) for k, (f, m) in per.items()}
+        name = str(dtype).replace("torch.", "")
+        out[name] = dict(errs=errs, abs_err=abs_err, times=times, bounds=bounds)
+        phase(f"talos_kernels_{name}", t0, B=B, T=T, nq=ocp.nq, nv=ocp.nv, nu=nu,
+              rows=n_rows, cone_case=dict(B=TALOS_CONE_B, T=TALOS_CONE_T, n_in=cone["ocp"].n_in),
+              tol=F32_WIDE_TOL if f32 else 1e-10, rel_err=errs, max_abs_err=abs_err,
+              kernel_and_twin_vs_f64_twin=vs64 or None,
+              talos_k3_k4_rel_err_vs_twin=k34, ms=times,
+              bound_ms=bounds if f32 else None,
+              ptxas=ptxas_report(ptxas_log, ("linearize_wide_kernel", "eval_wide_kernel",
+                                             "term_wide_kernel")) if f32 else None)
+    return out
+
+
+def phase_talos_fixture(device):
+    """Talos kinodynamics T=100 on the card against the committed f64
+    fixture talos_kinodynamics_T100.npz.
+
+    f32 (`phase_fixture`'s recipe, that of tests/test_parity_fixtures.py,
+    run to the f32 floor): BCL 30 iterations, then rounds of 30 ungated
+    multiplier iterations until a round leaves the iterate unchanged or
+    after TALOS_F32_ROUNDS rounds.  Gates: prim < 1e-4, max|us - us*| <=
+    3e-3 (the JAX package's pure-f32 gate on ~450 N forces), max|xs - xs*|
+    <= 1e-3.  Every round's max|us - us*| is printed.
+
+    f64: the fixture generator's own solve (tools/make_parity_fixtures.py
+    `make`: BCL, tol 1e-8, mu_init 1e-4, 60 iterations from the standing
+    start, continued while prim or dual >= 1e-6, at most 8 times):
+    max|us - us*| <= 1e-4.  The three f64 multiplier iterations from the f32
+    point of tests/test_parity_fixtures.py are printed, not gated: the line
+    search stalls there (tests/test_torch_talos_fixture.py, slow)."""
+    from simple_mpc_tpu_torch.configs import make_talos_kinodynamics
+    from simple_mpc_tpu_torch.parallel import tile_problem
+    from simple_mpc_tpu_torch.solver.proxddp import ProxDDPSolver, SolverSettings
+
+    t0 = time.perf_counter()
+    fx = np.load(os.path.join(ROOT, "tests", "fixtures", "talos_kinodynamics_T100.npz"))
+
+    def err(r, key="us"):
+        return float(np.abs(getattr(r, key)[0].double().cpu().numpy() - fx[key]).max())
+
+    def start(dtype):
+        ocp, _, x0 = make_talos_kinodynamics(T, device=device, dtype=dtype)
+        xs = ocp._tensor(x0)[None, None].expand(1, T + 1, -1).clone()
+        us = ocp.get_reference_control(0)[None, None].expand(1, T, -1).clone()
+        return ocp, tile_problem(ocp.problem, 1), xs, us
+
+    mm = SolverSettings(tol=1e-7, mu_init=1e-4, max_iters=30, bcl=False)
+    ocp, probs, xs, us = start(torch.float32)
+    res = ProxDDPSolver(ocp, SolverSettings(tol=1e-7, mu_init=1e-4, max_iters=30)).run(
+        probs, xs, us)
+    s_mm = ProxDDPSolver(ocp, mm)
+    per_round = []
+    for _ in range(TALOS_F32_ROUNDS):
+        prev = res.us
+        res = s_mm.run(probs, res.xs, res.us, (res.lam_eq, res.lam_in, res.lam_term), res.mu)
+        per_round.append(err(res))
+        if torch.equal(res.us, prev):
+            break
+    prim, err_u, err_x = float(res.prim_res[0]), per_round[-1], err(res, "xs")
+    check(prim < 1e-4, f"talos fixture re-solve: prim {prim:.3e} >= 1e-4")
+    check(err_u <= 3e-3, f"talos fixture gate: max|us - us*| = {err_u:.3e} > 3e-3")
+    check(err_x <= 1e-3, f"talos fixture gate: max|xs - xs*| = {err_x:.3e} > 1e-3")
+
+    ocp64, probs64, xs, us = start(torch.float64)
+    polish = ProxDDPSolver(ocp64, mm).run(
+        probs64, res.xs.double(), res.us.double(),
+        (res.lam_eq.double(), res.lam_in.double(), res.lam_term.double()), res.mu.double(),
+        max_iters=3)
+    check(bool(torch.isfinite(polish.us).all()), "talos fixture f64 polish: non-finite")
+    s64 = ProxDDPSolver(ocp64, SolverSettings(tol=1e-8, mu_init=1e-4, max_iters=60))
+    r64 = s64.run(probs64, xs, us)
+    calls = 1
+    while calls < 9 and not (float(r64.prim_res[0]) < 1e-6 and float(r64.dual_res[0]) < 1e-6):
+        r64 = s64.run(probs64, r64.xs, r64.us, (r64.lam_eq, r64.lam_in, r64.lam_term), r64.mu)
+        calls += 1
+    err_u64 = err(r64)
+    check(err_u64 <= 1e-4, f"talos fixture f64 solve: max|us - us*| = {err_u64:.3e} > 1e-4")
+    phase("talos_fixture", t0, f32_rounds=len(per_round), prim_res=prim, max_abs_err_us=err_u,
+          max_abs_err_us_per_round=per_round, max_abs_err_xs=err_x,
+          f64_polish_3_iterations_max_abs_err_us=err(polish),
+          f64_solve=dict(calls_of_60=calls, max_abs_err_us=err_u64,
+                         max_abs_err_xs=err(r64, "xs"), prim_res=float(r64.prim_res[0]),
+                         dual_res=float(r64.dual_res[0])))
+
+
+def phase_talos_batched(device):
+    """B=128 Talos kinodynamics T=100 problems in f32 from the committed
+    fixture's point, each scenario's states, controls and multipliers
+    perturbed from numpy with a fixed seed; the recipe of phase_batched
+    (one iteration a call, mu_init 1e-6, two warm-up calls, then 30 calls
+    each fed the last result).  Gates: finite, no divergence, the last
+    call's max prim_res < 5e-4."""
+    from simple_mpc_tpu_torch.configs import make_talos_kinodynamics
+    from simple_mpc_tpu_torch.parallel import BatchedSolver, tile_problem
+    from simple_mpc_tpu_torch.solver.proxddp import ProxDDPSolver, SolverSettings
+
+    t0 = time.perf_counter()
+    dtype = torch.float32
+    fx = np.load(os.path.join(ROOT, "tests", "fixtures", "talos_kinodynamics_T100.npz"))
+    ocp, mh, x0 = make_talos_kinodynamics(T, device=device, dtype=dtype)
+    probs = tile_problem(ocp.problem, B)
+    rng = np.random.default_rng(13)
+    xs = fx["xs"][None] + 1e-3 * rng.normal(size=(B,) + fx["xs"].shape)
+    xs[..., 3:7] /= np.linalg.norm(xs[..., 3:7], axis=-1, keepdims=True)
+    us = fx["us"][None] + 0.1 * rng.normal(size=(B,) + fx["us"].shape)
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)  # noqa: E731
+    xs, us = t(xs), t(us)
+    lams = tuple(t(np.repeat(fx[k][None], B, 0)) for k in ("lam_eq", "lam_in", "lam_term"))
+    bs = BatchedSolver(ProxDDPSolver(ocp, SolverSettings(mu_init=1e-6, max_iters=1,
+                                                         alphas=ALPHAS)))
+    prims = []
+    for _ in range(2):  # warm-up
+        res = bs.run(probs, xs, us, lams)
+        xs, us, lams = res.xs, res.us, (res.lam_eq, res.lam_in, res.lam_term)
+        prims.append(res.prim_res.max())
+    torch.cuda.synchronize()
+    calls = 30
+    t1 = time.perf_counter()
+    for _ in range(calls):
+        res = bs.run(probs, xs, us, lams)
+        xs, us, lams = res.xs, res.us, (res.lam_eq, res.lam_in, res.lam_term)
+        prims.append(res.prim_res.max())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    s = {k: float(v) for k, v in bs.summary(res).items()}
+    check(torch.isfinite(res.xs).all() and torch.isfinite(res.us).all()
+          and torch.isfinite(res.Ks).all(), "talos batched solve: non-finite iterate")
+    check(s["any_diverged"] == 0, "talos batched solve: a scenario diverged")
+    check(s["max_prim"] < 5e-4, f"talos batched solve: last max prim {s['max_prim']:.3e}")
+    phase("talos_batched", t0, B=B, T=T, calls=calls, solves_per_s=B * calls / wall,
+          ms_per_call=1e3 * wall / calls, max_prim_per_call=[float(p) for p in prims], **s)
+
+
+def phase_talos_mpc(device):
+    """The host MPC on Talos kinodynamics T=100 (the biped gait and
+    MPCSettings of examples/talos_kinodynamics.py: 20 double / 80 left / 20
+    double / 80 right, T_fly 80, T_contact 20, apex 0.1 m, mu_init 1e-8,
+    walking at 0.1 m/s; the weights of configs.talos_kinodynamics_config;
+    `init_max_iters` cut to 20), f32: 30 ticks fed their own planned next
+    state, then 5 more under the profiler.  Gates: finite plans, no
+    divergence."""
+    from simple_mpc_tpu_torch.configs import make_talos_kinodynamics
+    from simple_mpc_tpu_torch.mpc import MPC, MPCSettings
+
+    t0 = time.perf_counter()
+    ocp, mh, _ = make_talos_kinodynamics(T, device=device, dtype=torch.float32)
+    mpc = MPC(MPCSettings(support_force=mh.mass * 9.81, TOL=1e-4, mu_init=1e-8,
+                          max_iters=1, swing_apex=0.1, T_fly=80, T_contact=20,
+                          timestep=0.01, init_max_iters=20), ocp)
+    check(not mpc.diverged, "talos MPC: initial solve diverged")
+    setup = time.perf_counter() - t0
+    l, r = mh.feet_names
+    mpc.generate_cycle_horizon([{l: True, r: True}] * 20 + [{l: True, r: False}] * 80
+                               + [{l: True, r: True}] * 20 + [{l: False, r: True}] * 80)
+    mpc.switch_to_walk(np.array([0.1, 0, 0, 0, 0, 0]))
+    ticks, lat, prims = 30, [], []
+    for _ in range(ticks):
+        x = mpc.xs[1]
+        t1 = time.perf_counter()
+        res = mpc.iterate(x)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t1)
+        check(not mpc.diverged, "talos MPC: a tick diverged")
+        check(bool(torch.isfinite(res.xs).all() and torch.isfinite(res.us).all()
+                   and torch.isfinite(res.Ks).all()), "talos MPC: non-finite plan")
+        prims.append(float(res.prim_res))
+    trace = trace_calls(lambda: mpc.iterate(mpc.xs[1]))
+    lat_ms = 1e3 * np.asarray(lat)
+    phase("talos_mpc", t0, T=T, ticks=ticks, setup_s=setup,
+          tick_p50_ms=float(np.percentile(lat_ms, 50)),
+          tick_p99_ms=float(np.percentile(lat_ms, 99)), max_prim=float(max(prims)),
+          prim_per_tick=prims, takeoff=mpc.get_foot_takeoff_cycle(l),
+          land=mpc.get_foot_land_cycle(l), tick_trace=trace)
+
+
 def drive_main_path(device):
-    """Phases 4-8, each with the launch counters zeroed just before it (after
-    its set-up) and read just after; returns the launches of each kernel
-    summed over them."""
+    """The main paths (phases 4-10, 12 and 14-16), each with the launch
+    counters zeroed just before it (after its set-up) and read just after;
+    returns the launches of each kernel summed over them."""
     from simple_mpc_tpu_torch import kernels
 
     launches = dict.fromkeys((k.__name__ for k in kernels.KERNELS), 0)
@@ -1428,7 +1825,10 @@ def drive_main_path(device):
                              ("latency", phase_latency, latency_setup),
                              ("fd_batched", phase_fd_batched, None),
                              ("fd_mpc", phase_fd_mpc, None),
-                             ("closed_loop", phase_closed_loop, closed_loop_setup)):
+                             ("closed_loop", phase_closed_loop, closed_loop_setup),
+                             ("talos_batched", phase_talos_batched, None),
+                             ("talos_fixture", phase_talos_fixture, None),
+                             ("talos_mpc", phase_talos_mpc, None)):
         args = setup(device) if setup else ()
         kernels.reset_launches()
         run(device, *args)
@@ -1447,7 +1847,8 @@ def drive_main_path(device):
     return launches
 
 
-PHASES = ("kernels", "fd_kernels", "id_sim_kernels", "fixture")
+PHASES = ("kernels", "fd_kernels", "id_sim_kernels", "fixture", "talos_kernels",
+          "talos_fixture")
 
 
 def main():
@@ -1484,7 +1885,9 @@ def main():
     if phases is not None:
         runs = dict(kernels=phase_kernels, fd_kernels=phase_fd_kernels,
                     id_sim_kernels=lambda d: phase_id_sim_kernels(d, info["log"]),
-                    fixture=phase_fixture)
+                    fixture=phase_fixture,
+                    talos_kernels=lambda d: phase_talos_kernels(d, info["log"]),
+                    talos_fixture=phase_talos_fixture)
         for name in phases:
             runs[name](device)
         print(smi, flush=True)
@@ -1496,6 +1899,7 @@ def main():
     kres = phase_kernels(device)
     fdres = phase_fd_kernels(device)
     idres = phase_id_sim_kernels(device, info["log"])
+    talres = phase_talos_kernels(device, info["log"])
     launches = drive_main_path(device)
 
     replaces = dict(
@@ -1513,10 +1917,17 @@ def main():
         qp_admm=("qp.cu", "simple_mpc_tpu/id/qp.py:33"),
         id_assemble=("id.cu", "simple_mpc_tpu/id/kinodynamics_id.py:131"),
         sim_step=("sim.cu", "simple_mpc_tpu/sim/simulator.py:125"),
+        wide_stage_linearize=("linearize_wide.cu", "simple_mpc_tpu/solver/proxddp.py:271"),
+        wide_stage_eval=("linearize_wide.cu", "simple_mpc_tpu/solver/proxddp.py:183"),
+        wide_term_linearize=("linearize_wide.cu", "simple_mpc_tpu/solver/proxddp.py:352"),
     )
     id32 = idres["float32"]
-    f32 = {k: {n: {**kres["float32"][n], **fdres["float32"][n]}[k] for n in
-               ("abs_err", "times", "bounds")} for k in replaces if k not in id32["errs"]}
+    # each kernel's readings from the phase that checked it (phase 3's
+    # K3 and K4 are Go2's; the Talos phase's are printed there)
+    checked = (kres["float32"], fdres["float32"], talres["float32"])
+    f32 = {k: {n: next(c[n][k] for c in checked if k in c["errs"])
+               for n in ("abs_err", "times", "bounds")}
+           for k in replaces if k not in id32["errs"]}
     f32.update({k: dict(abs_err=id32["abs_err"][k], times=id32["times"]["B1"][k],
                         bounds=id32["bounds"]["B1"][k]) for k in id32["errs"]})
     shape = dict(parallel_riccati_backward=(1, T), fd_dynamics=(1, 1), qp_admm=(1, 1),

@@ -1,9 +1,10 @@
 """Canonical robot + OCP configurations mirroring the reference examples.
 
-Port of the Go2 kinodynamics and full-dynamics entries of
-`simple_mpc_tpu.configs` (the settings dictionaries of
-examples/go2_kinodynamics.py and examples/go2_fulldynamics.py), and the
-fused-tick engines of the JAX package's bench (`bench.py` `_make_fused`).
+Port of the Go2 kinodynamics and full-dynamics entries and the Talos
+kinodynamics entry of `simple_mpc_tpu.configs` (the settings dictionaries
+of examples/go2_kinodynamics.py, examples/go2_fulldynamics.py and the
+Talos parity fixture), and the fused-tick engines of the JAX package's
+bench (`bench.py` `_make_fused`).
 """
 from __future__ import annotations
 
@@ -14,6 +15,10 @@ from .models import robots
 from .models.handler import RobotModelHandler
 
 GO2_FEET = ["FL_foot", "FR_foot", "RL_foot", "RR_foot"]
+TALOS_FEET = ["left_sole_link", "right_sole_link"]
+TALOS_CONTACT_POINTS = np.array(
+    [[0.1, 0.075, 0.0], [0.1, -0.075, 0.0], [-0.1, 0.075, 0.0], [-0.1, -0.075, 0.0]]
+)
 
 
 def go2_handler() -> RobotModelHandler:
@@ -21,6 +26,14 @@ def go2_handler() -> RobotModelHandler:
     mh = RobotModelHandler(model, "standing", "base")
     for f in GO2_FEET:
         mh.add_point_foot(f, "base")
+    return mh
+
+
+def talos_handler() -> RobotModelHandler:
+    model = robots.load_talos()
+    mh = RobotModelHandler(model, "half_sitting", "base_link")
+    for f in TALOS_FEET:
+        mh.add_quad_foot(f, "base_link", TALOS_CONTACT_POINTS)
     return mh
 
 
@@ -51,6 +64,58 @@ def make_go2_kinodynamics(T: int = 100, device="cuda", dtype=torch.float64):
     ocp = KinodynamicsOCP(go2_kinodynamics_config(mh), mh, device, dtype)
     x0 = np.asarray(mh.reference_state)
     ocp.create_problem(x0, T, 3, -9.81, False)
+    return ocp, mh, x0
+
+
+def talos_kinodynamics_config(mh: RobotModelHandler) -> dict:
+    """examples/talos_kinodynamics.py:49-107 settings (6D quad feet) on the
+    22-actuated-joint reduced Talos.  Per-group weights follow the
+    reference's grouping and joint order exactly
+    (talos_kinodynamics.py:49-66): [base, legs(2x6), torso(2), arms(2x4)]."""
+    model = mh.model
+    nv = model.nv
+    w_basepos = [0, 0, 1000, 1000, 1000, 1000]
+    w_legpos = [0.1] * 6
+    w_torsopos = [1, 1000]
+    w_armpos = [1, 1, 10, 10]
+    w_basevel = [10.0] * 6
+    w_legvel = [1.0] * 6
+    w_torsovel = [0.1, 100]
+    w_armvel = [10.0] * 4
+    w_x = np.array(w_basepos + w_legpos * 2 + w_torsopos + w_armpos * 2
+                   + w_basevel + w_legvel * 2 + w_torsovel + w_armvel * 2) * 10.0
+    w_linforce = np.array([0.001, 0.001, 0.01])
+    w_angforce = np.ones(3) * 0.1
+    w_u = np.concatenate(
+        [w_linforce, w_angforce, w_linforce, w_angforce,
+         np.ones(nv - 6) * 1e-4])
+    return dict(
+        timestep=0.01,
+        w_x=w_x, w_u=w_u,
+        w_cent=np.concatenate([[0.0, 0.0, 1.0], [0.1, 0.1, 10.0]]),
+        w_centder=np.concatenate([np.zeros(3), np.ones(3) * 0.1]),
+        w_frame=np.ones(6) * 100000.0, gravity=np.array([0, 0, -9.81]),
+        force_size=6, qmin=model.lower_limit[7:], qmax=model.upper_limit[7:],
+        kinematics_limits=True, force_cone=False, land_cstr=False,
+        mu=0.8, Lfoot=0.1, Wfoot=0.075,
+    )
+
+
+def make_talos_kinodynamics(T: int = 100, device="cuda", dtype=torch.float64,
+                            force_cone=False):
+    """Talos kinodynamics (23 joints, two 6D quad feet), horizon T, at
+    half_sitting, with its problem built on `device` in `dtype`: the
+    problem of the committed fixture `talos_kinodynamics_T100.npz`
+    (tools/make_parity_fixtures.py `build_ocp("talos")`).  `force_cone`
+    switches on the two 17-row wrench cones (off in the fixture)."""
+    from .ocp.kinodynamics import KinodynamicsOCP
+
+    mh = talos_handler()
+    cfg = talos_kinodynamics_config(mh)
+    cfg["force_cone"] = force_cone
+    ocp = KinodynamicsOCP(cfg, mh, device, dtype)
+    x0 = np.asarray(mh.reference_state)
+    ocp.create_problem(x0, T, 6, -9.81, False)
     return ocp, mh, x0
 
 

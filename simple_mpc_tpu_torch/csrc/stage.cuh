@@ -39,11 +39,20 @@
 
 namespace smpc {
 
-constexpr int kMaxJ = 16;  // joints: a free-flyer root and 1-dof joints
+// The limits below are the Go2 units' own; csrc/stage_wide.cuh compiles
+// this header again at wider ones, in a namespace of its own.
+#ifndef SMPC_MAX_JOINTS
+#define SMPC_MAX_JOINTS 16
+#endif
+#ifndef SMPC_MAX_FORCE_SIZE
+#define SMPC_MAX_FORCE_SIZE 3
+#endif
+
+constexpr int kMaxJ = SMPC_MAX_JOINTS;  // joints: a free-flyer root and 1-dof joints
 constexpr int kMaxV = kMaxJ + 5;
 constexpr int kMaxQ = kMaxJ + 6;
 constexpr int kMaxK = 8;  // contacts
-constexpr int kMaxU = 3 * kMaxK + kMaxV - 6;
+constexpr int kMaxU = SMPC_MAX_FORCE_SIZE * kMaxK + kMaxV - 6;
 
 // Static sizes and offsets; kernels.py `_DIMS_FIELDS` lists the same ints in
 // the same order.

@@ -22,6 +22,12 @@ K4 `linear_rollout` (csrc/rollout.cu) replaces `ProxDDPSolver._candidate`'s
 rollout scan.
 K5 `term_linearize` (csrc/linearize.cu) replaces
 `ProxDDPSolver._linearize_term`.
+The wide stage kernels `wide_stage_linearize`, `wide_stage_eval` and
+`wide_term_linearize` (csrc/linearize_wide.cu over csrc/stage_wide.cuh) are
+K1+K2, K1 and K5 for what csrc/linearize.cu refuses: 6D contacts, more
+than 16 joints or more than 64 tangent directions (Talos kinodynamics);
+`stage_route` decides, and `stage_linearize`, `stage_eval` and
+`term_linearize` hand a wide OCP's CUDA tensors to them.
 K9 `tick_refs` (csrc/tick.cu) replaces the bookkeeping of
 `simple_mpc_tpu/mpc/fused.py` `FusedMPC._step` before the solve.
 K8 `qp_admm` (csrc/qp.cu) replaces `simple_mpc_tpu/id/qp.py` `solve_qp`,
@@ -72,8 +78,8 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("riccati.cu", "parallel_riccati.cu", "rollout.cu", "linearize.cu", "fulldyn.cu",
-           "tick.cu", "qp.cu", "id.cu", "sim.cu")
-HEADERS = ("stage.cuh", "fulldyn.cuh")
+           "tick.cu", "qp.cu", "id.cu", "sim.cu", "linearize_wide.cu")
+HEADERS = ("stage.cuh", "fulldyn.cuh", "stage_wide.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -149,6 +155,9 @@ def _library() -> ctypes.CDLL:
             fd_stage_eval=[P] * 13 + [I] * 3 + [P] * 5,
             fd_dynamics=[P] * 6 + [I] + [P] * 3,
             term_linearize=[P] * 7 + [I] + [P] * 3,
+            wide_stage_linearize=[P] * 14 + [I] * 2 + [P] * 9,
+            wide_stage_eval=[P] * 13 + [I] * 3 + [P] * 5,
+            wide_term_linearize=[P] * 7 + [I] + [P] * 3,
             tick_refs=[P] * 12 + [I] * 6 + [D, D] + [P] * 8,
             qp_admm=[P] * 7 + [I] * 4 + [D] * 3 + [P] * 5,
             id_assemble=[P] * 10 + [I] * 4 + [P] * 9,
@@ -159,10 +168,12 @@ def _library() -> ctypes.CDLL:
                 fn = getattr(lib, f"smpc_{name}_{dt}")
                 fn.argtypes = args
                 fn.restype = I
-        lib.smpc_dims_ints.restype = I
-        if lib.smpc_dims_ints() != _DIMS_INTS:
-            raise RuntimeError(f"stage.cuh Dims holds {lib.smpc_dims_ints()} ints, "
-                               f"kernels.py packs {_DIMS_INTS}")
+        for fn, want in ((lib.smpc_dims_ints, _DIMS_INTS),
+                         (lib.smpc_wide_dims_ints, _WIDE_DIMS_INTS)):
+            fn.restype = I
+            if fn() != want:
+                raise RuntimeError(f"{fn.__name__}: Dims holds {fn()} ints, "
+                                   f"kernels.py packs {want}")
         _lib = lib
     return _lib
 
@@ -423,20 +434,31 @@ linear_rollout.launches = 0
 MAX_JOINTS = 16  # stage.cuh kMaxJ
 MAX_FEET = 8  # stage.cuh kMaxK
 LIN_THREADS = 64  # linearize.cu kLinThreads: one thread a tangent direction
-_DIMS_FIELDS = (
-    ("nj", 1), ("nq", 1), ("nv", 1), ("nu", 1), ("nk", 1), ("fs", 1),
-    ("n_cost", 1), ("n_eq", 1), ("n_in", 1), ("n_term_cost", 1), ("n_term_eq", 1),
-    ("kin_limits", 1), ("force_cone", 1), ("land_cstr", 1),
-    ("parent", MAX_JOINTS), ("qidx", MAX_JOINTS), ("vidx", MAX_JOINTS),
-    ("frame_parent", 2 * MAX_FEET + 1),
-    ("o_jR", 1), ("o_jp", 1), ("o_axis", 1), ("o_prism", 1), ("o_mass", 1),
-    ("o_com", 1), ("o_Iloc", 1), ("o_fR", 1), ("o_fp", 1), ("o_w", 1),
-    ("o_wterm", 1), ("o_g", 1), ("o_qmin", 1), ("o_qmax", 1), ("o_cone", 1),
-    ("o_scalars", 1),
-    ("torque_limits", 1), ("kp_on", 1), ("o_umin", 1), ("o_umax", 1), ("o_kp", 1),
-    ("o_kd", 1), ("o_Icom", 1), ("o_grav", 1), ("o_prox", 1),
-)
+WIDE_MAX_JOINTS = 32  # stage_wide.cuh SMPC_MAX_JOINTS
+WIDE_THREADS = 128  # linearize_wide.cu kWideThreads: one thread a tangent direction
+
+
+def _dims_fields(max_joints):
+    """stage.cuh `Dims` at `max_joints`: (name, ints) in its order."""
+    return (
+        ("nj", 1), ("nq", 1), ("nv", 1), ("nu", 1), ("nk", 1), ("fs", 1),
+        ("n_cost", 1), ("n_eq", 1), ("n_in", 1), ("n_term_cost", 1), ("n_term_eq", 1),
+        ("kin_limits", 1), ("force_cone", 1), ("land_cstr", 1),
+        ("parent", max_joints), ("qidx", max_joints), ("vidx", max_joints),
+        ("frame_parent", 2 * MAX_FEET + 1),
+        ("o_jR", 1), ("o_jp", 1), ("o_axis", 1), ("o_prism", 1), ("o_mass", 1),
+        ("o_com", 1), ("o_Iloc", 1), ("o_fR", 1), ("o_fp", 1), ("o_w", 1),
+        ("o_wterm", 1), ("o_g", 1), ("o_qmin", 1), ("o_qmax", 1), ("o_cone", 1),
+        ("o_scalars", 1),
+        ("torque_limits", 1), ("kp_on", 1), ("o_umin", 1), ("o_umax", 1), ("o_kp", 1),
+        ("o_kd", 1), ("o_Icom", 1), ("o_grav", 1), ("o_prox", 1),
+    )
+
+
+_DIMS_FIELDS = _dims_fields(MAX_JOINTS)
 _DIMS_INTS = sum(n for _, n in _DIMS_FIELDS)
+_WIDE_DIMS_FIELDS = _dims_fields(WIDE_MAX_JOINTS)  # smpc_wide::Dims
+_WIDE_DIMS_INTS = sum(n for _, n in _WIDE_DIMS_FIELDS)
 _consts_cache: dict = {}
 
 
@@ -444,10 +466,11 @@ def _np64(t) -> np.ndarray:
     return t.detach().to(device="cpu", dtype=torch.float64).numpy()
 
 
-def _require_body_layout(m, nk: int, what: str = "the stage kernels"):
+def _require_body_layout(m, nk: int, what: str = "the stage kernels",
+                         max_joints: int = MAX_JOINTS):
     """The kernels' model: a free-flyer root, 1-dof joints in tree order
-    with q/v indices in joint order, at most MAX_JOINTS joints and MAX_FEET
-    feet."""
+    with q/v indices in joint order, at most `max_joints` joints and
+    MAX_FEET feet."""
     nj = m.njoints
     ok = (m.joint_types[0] == FREE and all(t != FREE for t in m.joint_types[1:])
           and all(m.parents[j] < j for j in range(1, nj))
@@ -455,8 +478,8 @@ def _require_body_layout(m, nk: int, what: str = "the stage kernels"):
     if not ok:
         raise NotImplementedError(f"{what} take a free-flyer root followed by "
                                   "1-dof joints in tree order")
-    if nj > MAX_JOINTS or nk > MAX_FEET:
-        raise NotImplementedError(f"{what} take at most {MAX_JOINTS} joints "
+    if nj > max_joints or nk > MAX_FEET:
+        raise NotImplementedError(f"{what} take at most {max_joints} joints "
                                   f"and {MAX_FEET} feet")
 
 
@@ -471,15 +494,39 @@ def _require_stage_layout(ocp):
                                   f"directions (ndx + nu), got {2 * ocp.nv + ocp.nu}")
 
 
-def _stage_consts(ocp, dtype, device):
-    """(packed constants on `device` in `dtype`, Dims as a ctypes int array),
-    built once per (OCP, topology tables, terminal rows, dtype, device)."""
+def stage_route(ocp) -> str:
+    """Which kernels take the kinodynamics stage of `ocp` on the card:
+    "narrow" (csrc/linearize.cu) for what `_require_stage_layout` accepts,
+    "wide" (csrc/linearize_wide.cu) for force size 3 or 6, at most
+    WIDE_MAX_JOINTS joints, MAX_FEET feet and WIDE_THREADS tangent
+    directions (ndx + nu).  Raises NotImplementedError beyond those."""
+    _require_body_layout(ocp.model, ocp.nk, max_joints=WIDE_MAX_JOINTS)
+    ndir = 2 * ocp.nv + ocp.nu
+    if ocp.fs == 3 and ocp.model.njoints <= MAX_JOINTS and ndir <= LIN_THREADS:
+        return "narrow"
+    if ocp.fs not in (3, 6):
+        raise NotImplementedError(f"the stage kernels take force size 3 or 6, got {ocp.fs}")
+    if ndir > WIDE_THREADS:
+        raise NotImplementedError(f"the wide stage kernels take at most {WIDE_THREADS} "
+                                  f"tangent directions (ndx + nu), got {ndir}")
+    return "wide"
+
+
+def _stage_consts(ocp, dtype, device, wide=False):
+    """(packed constants on `device` in `dtype`, Dims as a ctypes int array)
+    of the Go2 units' `Dims`, or with `wide` of `smpc_wide::Dims`, built once
+    per (OCP, topology tables, terminal rows, dtype, device, width)."""
     tab = _world.tables(ocp.model)
-    key = (id(ocp), id(tab), ocp.n_term_eq, dtype, device)
+    key = (id(ocp), id(tab), ocp.n_term_eq, dtype, device, wide)
     hit = _consts_cache.get(key)
     if hit is not None and hit[0] is ocp and hit[1] is tab:
         return hit[2], hit[3]
-    _require_stage_layout(ocp)
+    if wide:
+        if ocp.full_dynamics:
+            raise ValueError("the wide stage kernels take a kinodynamics OCP")
+        stage_route(ocp)
+    else:
+        _require_stage_layout(ocp)
     m, mh, s = ocp.model, ocp.model_handler, ocp.settings
     nj, nk, nv = m.njoints, ocp.nk, ocp.nv
     c = ocp._const(torch.empty(0, dtype=torch.float64))
@@ -517,15 +564,16 @@ def _stage_consts(ocp, dtype, device):
         kp_on=int(bool(np.any(kp))),
         parent=list(m.parents), qidx=list(m.idx_q), vidx=list(m.idx_v),
         frame_parent=[int(tab.fparent[f]) for f in sel])
-    buf, dims_c = _pack_consts(dims, blocks, dtype, device)
+    buf, dims_c = _pack_consts(dims, blocks, dtype, device,
+                               _WIDE_DIMS_FIELDS if wide else _DIMS_FIELDS)
     _consts_cache[key] = (ocp, tab, buf, dims_c)
     return buf, dims_c
 
 
-def _pack_consts(dims: dict, blocks: dict, dtype, device):
-    """(the blocks concatenated on `device` in `dtype`, Dims as a ctypes int
-    array): each block's offset goes to `dims` under its name; Dims fields
-    that `dims` lacks are 0."""
+def _pack_consts(dims: dict, blocks: dict, dtype, device, fields=_DIMS_FIELDS):
+    """(the blocks concatenated on `device` in `dtype`, Dims of `fields` as
+    a ctypes int array): each block's offset goes to `dims` under its name;
+    Dims fields that `dims` lacks are 0."""
     flat, off = [], 0
     for name, arr in blocks.items():
         a = np.asarray(arr, np.float64).reshape(-1)
@@ -533,10 +581,10 @@ def _pack_consts(dims: dict, blocks: dict, dtype, device):
         flat.append(a)
         off += a.shape[0]
     ints = []
-    for name, n in _DIMS_FIELDS:
+    for name, n in fields:
         v = np.atleast_1d(np.asarray(dims.get(name, 0), np.int64))
         ints.extend(v.tolist() + [0] * (n - v.shape[0]))
-    dims_c = (ctypes.c_int * _DIMS_INTS)(*ints)
+    dims_c = (ctypes.c_int * len(ints))(*ints)
     buf = torch.as_tensor(np.concatenate(flat), dtype=dtype, device=device)
     return buf, dims_c
 
@@ -551,11 +599,14 @@ def _stage_kernel(ocp, fd: bool, name: str) -> str:
     return f"fd_{name}" if fd else name
 
 
-def _stage_params(sp, nb, T, nk, nx, nu, dtype, device, fd=False):
+def _stage_params(sp, nb, T, nk, nx, nu, dtype, device, fd=False, wide=False):
     """Pointers to the stage parameters the kernels read, checked and
-    contiguous; the full-dynamics stage also reads f_ref."""
-    shapes = dict(contact_active=(nb, T, nk), foot_ref_p=(nb, T, nk, 3),
-                  x_ref=(nb, T, nx), u_ref=(nb, T, nu))
+    contiguous; the full-dynamics stage also reads f_ref, the wide stage
+    foot_ref_R."""
+    shapes = dict(contact_active=(nb, T, nk))
+    if wide:
+        shapes["foot_ref_R"] = (nb, T, nk, 3, 3)
+    shapes.update(foot_ref_p=(nb, T, nk, 3), x_ref=(nb, T, nx), u_ref=(nb, T, nu))
     if fd:
         shapes["f_ref"] = (nb, T, nk, 3)
     shapes["land"] = (nb, T, nk)
@@ -627,23 +678,23 @@ def _linearize_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu):
                 Qux=bt(H[:, ndx:, :ndx]))
 
 
-def _linearize_cuda(solver, sp, xs, us, lam_eq, lam_in, mu, fd=False):
+def _linearize_cuda(solver, sp, xs, us, lam_eq, lam_in, mu, fd=False, wide=False):
     ocp = solver.ocp
     dtype, device = xs.dtype, xs.device
-    C, dims = _stage_consts(ocp, dtype, device)
+    C, dims = _stage_consts(ocp, dtype, device, wide)
     nb, T = us.shape[:2]
     nx, nu, ndx = solver.space.nx, ocp.nu, solver.space.ndx
     shapes = dict(xs=(nb, T + 1, nx), us=(nb, T, nu), lam_eq=(nb, T, ocp.n_eq),
                   lam_in=(nb, T, ocp.n_in), mu=(nb,))
     t = _check(dict(xs=xs, us=us, lam_eq=lam_eq, lam_in=lam_in, mu=mu), shapes,
                dtype, device)
-    params = _stage_params(sp, nb, T, ocp.nk, nx, nu, dtype, device, fd)
+    params = _stage_params(sp, nb, T, ocp.nk, nx, nu, dtype, device, fd, wide)
     su = solver._su(xs)
     out = dict(A=(nb, T, ndx, ndx), B=(nb, T, ndx, nu), d=(nb, T, ndx),
                qx=(nb, T, ndx), qu=(nb, T, nu), Qxx=(nb, T, ndx, ndx),
                Quu=(nb, T, nu, nu), Qux=(nb, T, nu, ndx))
     out = {k: torch.empty(v, dtype=dtype, device=device) for k, v in out.items()}
-    name = _stage_kernel(ocp, fd, "stage_linearize")
+    name = "wide_stage_linearize" if wide else _stage_kernel(ocp, fd, "stage_linearize")
     fn = getattr(_library(), f"smpc_{name}_{_suffix(dtype)}")
     with torch.cuda.device(device):
         err = fn(ctypes.addressof(dims), C.data_ptr(), t["xs"].data_ptr(),
@@ -664,6 +715,8 @@ def stage_linearize(solver, sp, xs, us, lam_eq, lam_in, mu):
     if dev.type == "cpu":
         return _linearize_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu)
     if dev.type == "cuda":
+        if stage_route(solver.ocp) == "wide":
+            return wide_stage_linearize(solver, sp, xs, us, lam_eq, lam_in, mu)
         out = _linearize_cuda(solver, sp, xs, us, lam_eq, lam_in, mu)
         stage_linearize.launches += 1
         return out
@@ -671,6 +724,23 @@ def stage_linearize(solver, sp, xs, us, lam_eq, lam_in, mu):
 
 
 stage_linearize.launches = 0
+
+
+def wide_stage_linearize(solver, sp, xs, us, lam_eq, lam_in, mu):
+    """K1+K2 at wide shapes (csrc/linearize_wide.cu): `stage_linearize`'s
+    contract, for 6D contacts and up to WIDE_MAX_JOINTS joints and
+    WIDE_THREADS tangent directions; the stage params' foot_ref_R is read."""
+    dev = xs.device
+    if dev.type == "cpu":
+        return _linearize_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu)
+    if dev.type == "cuda":
+        out = _linearize_cuda(solver, sp, xs, us, lam_eq, lam_in, mu, wide=True)
+        wide_stage_linearize.launches += 1
+        return out
+    raise RuntimeError(f"wide_stage_linearize: no kernel for device {dev}")
+
+
+wide_stage_linearize.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -698,21 +768,21 @@ def _eval_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu):
     return (costs.reshape(n, T), _unlanes(g, n), _unlanes(h, n), _unlanes(gap, n))
 
 
-def _eval_cuda(solver, sp, xs, us, lam_eq, lam_in, mu, fd=False):
+def _eval_cuda(solver, sp, xs, us, lam_eq, lam_in, mu, fd=False, wide=False):
     ocp = solver.ocp
     dtype, device = xs.dtype, xs.device
-    C, dims = _stage_consts(ocp, dtype, device)
+    C, dims = _stage_consts(ocp, dtype, device, wide)
     nb, na, T = us.shape[:3]
     nx, nu, ndx = solver.space.nx, ocp.nu, solver.space.ndx
     shapes = dict(xs=(nb, na, T + 1, nx), us=(nb, na, T, nu),
                   lam_eq=(nb, T, ocp.n_eq), lam_in=(nb, T, ocp.n_in), mu=(nb,))
     t = _check(dict(xs=xs, us=us, lam_eq=lam_eq, lam_in=lam_in, mu=mu), shapes,
                dtype, device)
-    params = _stage_params(sp, nb, T, ocp.nk, nx, nu, dtype, device, fd)
+    params = _stage_params(sp, nb, T, ocp.nk, nx, nu, dtype, device, fd, wide)
     n = nb * na
     out = [torch.empty(s, dtype=dtype, device=device)
            for s in ((n, T), (n, T, ocp.n_eq), (n, T, ocp.n_in), (n, T, ndx))]
-    name = _stage_kernel(ocp, fd, "stage_eval")
+    name = "wide_stage_eval" if wide else _stage_kernel(ocp, fd, "stage_eval")
     fn = getattr(_library(), f"smpc_{name}_{_suffix(dtype)}")
     with torch.cuda.device(device):
         err = fn(ctypes.addressof(dims), C.data_ptr(), t["xs"].data_ptr(),
@@ -732,6 +802,8 @@ def stage_eval(solver, sp, xs, us, lam_eq, lam_in, mu):
     if dev.type == "cpu":
         return _eval_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu)
     if dev.type == "cuda":
+        if stage_route(solver.ocp) == "wide":
+            return wide_stage_eval(solver, sp, xs, us, lam_eq, lam_in, mu)
         out = _eval_cuda(solver, sp, xs, us, lam_eq, lam_in, mu)
         stage_eval.launches += 1
         return out
@@ -739,6 +811,22 @@ def stage_eval(solver, sp, xs, us, lam_eq, lam_in, mu):
 
 
 stage_eval.launches = 0
+
+
+def wide_stage_eval(solver, sp, xs, us, lam_eq, lam_in, mu):
+    """K1 on the candidates at wide shapes (csrc/linearize_wide.cu):
+    `stage_eval`'s contract."""
+    dev = xs.device
+    if dev.type == "cpu":
+        return _eval_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu)
+    if dev.type == "cuda":
+        out = _eval_cuda(solver, sp, xs, us, lam_eq, lam_in, mu, wide=True)
+        wide_stage_eval.launches += 1
+        return out
+    raise RuntimeError(f"wide_stage_eval: no kernel for device {dev}")
+
+
+wide_stage_eval.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -852,10 +940,10 @@ def _linearize_term_plain(solver, x, tp, lam_term, mu):
     return Vx, Vxx
 
 
-def _term_cuda(solver, x, tp, lam_term, mu):
+def _term_cuda(solver, x, tp, lam_term, mu, wide=False):
     ocp = solver.ocp
     dtype, device = x.dtype, x.device
-    C, dims = _stage_consts(ocp, dtype, device)
+    C, dims = _stage_consts(ocp, dtype, device, wide)
     nb = x.shape[0]
     nx, ndx = solver.space.nx, solver.space.ndx
     shapes = dict(x=(nb, nx), x_ref=(nb, nx), dcm_ref=(nb, 3),
@@ -864,12 +952,13 @@ def _term_cuda(solver, x, tp, lam_term, mu):
                shapes, dtype, device)
     Vx = torch.empty((nb, ndx), dtype=dtype, device=device)
     Vxx = torch.empty((nb, ndx, ndx), dtype=dtype, device=device)
-    fn = getattr(_library(), f"smpc_term_linearize_{_suffix(dtype)}")
+    name = "wide_term_linearize" if wide else "term_linearize"
+    fn = getattr(_library(), f"smpc_{name}_{_suffix(dtype)}")
     with torch.cuda.device(device):
         err = fn(ctypes.addressof(dims), C.data_ptr(),
                  *[t[k].data_ptr() for k in shapes], nb, Vx.data_ptr(),
                  Vxx.data_ptr(), _stream(device))
-    _raise_on(err, "term_linearize")
+    _raise_on(err, name)
     return Vx, Vxx
 
 
@@ -880,6 +969,8 @@ def term_linearize(solver, x, tp, lam_term, mu):
     if dev.type == "cpu":
         return _linearize_term_plain(solver, x, tp, lam_term, mu)
     if dev.type == "cuda":
+        if not solver.ocp.full_dynamics and stage_route(solver.ocp) == "wide":
+            return wide_term_linearize(solver, x, tp, lam_term, mu)
         out = _term_cuda(solver, x, tp, lam_term, mu)
         term_linearize.launches += 1
         return out
@@ -887,6 +978,22 @@ def term_linearize(solver, x, tp, lam_term, mu):
 
 
 term_linearize.launches = 0
+
+
+def wide_term_linearize(solver, x, tp, lam_term, mu):
+    """K5 at wide shapes (csrc/linearize_wide.cu): `term_linearize`'s
+    contract."""
+    dev = x.device
+    if dev.type == "cpu":
+        return _linearize_term_plain(solver, x, tp, lam_term, mu)
+    if dev.type == "cuda":
+        out = _term_cuda(solver, x, tp, lam_term, mu, wide=True)
+        wide_term_linearize.launches += 1
+        return out
+    raise RuntimeError(f"wide_term_linearize: no kernel for device {dev}")
+
+
+wide_term_linearize.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1217,7 +1324,8 @@ sim_step.launches = 0
 
 KERNELS = (stage_linearize, stage_eval, riccati_backward, parallel_riccati_backward,
            linear_rollout, term_linearize, tick_refs, fd_stage_linearize, fd_stage_eval,
-           fd_dynamics, qp_admm, id_assemble, sim_step)
+           fd_dynamics, qp_admm, id_assemble, sim_step, wide_stage_linearize,
+           wide_stage_eval, wide_term_linearize)
 
 
 def reset_launches():

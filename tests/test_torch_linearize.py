@@ -232,6 +232,8 @@ def test_stage_kernels_match_twins_on_cuda(config):
 
 @pytest.mark.cuda
 def test_6d_contacts_raise_on_cuda():
+    """The kernels of csrc/linearize.cu refuse 6D contacts before any
+    launch; `stage_linearize` hands such an OCP to the wide kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from simple_mpc_tpu_torch import kernels
@@ -250,6 +252,9 @@ def test_6d_contacts_raise_on_cuda():
     us = torch.zeros((1, 2, ocp.nu), device="cuda")
     lam = (torch.zeros((1, 2, ocp.n_eq), device="cuda"),
            torch.zeros((1, 2, ocp.n_in), device="cuda"))
+    args = (ProxDDPSolver(ocp), probs.stage_params, xs, us, *lam, torch.ones(1, device="cuda"))
     with pytest.raises(NotImplementedError):
-        kernels.stage_linearize(ProxDDPSolver(ocp), probs.stage_params, xs, us, *lam,
-                                torch.ones(1, device="cuda"))
+        kernels._linearize_cuda(*args)
+    n = kernels.wide_stage_linearize.launches
+    kernels.stage_linearize(*args)
+    assert kernels.wide_stage_linearize.launches == n + 1
