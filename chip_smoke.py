@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases fd_kernels,fixture,id_sim_kernels
+    python3 chip_smoke.py --phases talos_id_sim_kernels,talos_closed_loop
 
 The second form runs the device and build phases and then only the named
 ones of `PHASES` (kernel checks and times, no launch counts and no kernel
@@ -70,11 +71,12 @@ Phases, each printing one line; any failure raises and exits non-zero:
                f32, uncut (T=50 trot at 0.2 m/s, the example's ID with 60
                ADMM steps, simulator dt 1e-3, 10 inner steps a tick), 160
                MPC ticks: the four walking gates of tests/test_walking.py;
-               p50/p99 of the tick, of its references (with the ten inner
+               p50/p99 of the tick, of its references (the two state
+               derivatives through K11 state_derivative, with the ten inner
                steps' interpolated targets), of the inner step (ID and
                simulator) and of the inner step with a tenth of the
-               references; the three kernels' times and a trace of 10
-               inner steps.
+               references; the four kernels' times and a trace of 10
+               inner steps (loop_readings).
  13. talos_kernels — (after phase 11) the wide stage kernels of
                csrc/linearize_wide.cu (K1+K2, K1 on the candidates, K5 for
                6D contacts and 23 joints) against their twins on a
@@ -93,18 +95,35 @@ Phases, each printing one line; any failure raises and exits non-zero:
  16. talos_mpc — the host MPC on Talos T=100 (examples/talos_kinodynamics.py's
                biped gait and MPC settings), f32, 30 self-fed ticks: finite,
                no divergence; tick p50/p99 and one tick's trace.
-Phases 4-10, 12 and 14-16 drive the main paths.  The kernels' launch
+ 17. talos_id_sim_kernels — (after phase 13) the Talos closed loop's
+               kernels against their twins at B=1 and B=128, f32 and f64:
+               wide_id_assemble (csrc/id_wide.cu: 6D wrenches, wrench
+               cones), qp_admm at n=40, m=98 and 110, wide_sim_step
+               (csrc/sim_wide.cu, 23 joints), on perturbed Talos states with
+               one foot lifted and with the pulling contacts dropped, and
+               K11 state_derivative (csrc/acc.cu, Go2) and
+               wide_state_derivative (csrc/acc_wide.cu, Talos) on perturbed
+               lanes; f32 gated against the twin in f64 at F32_TALOS_TOL.
+ 18. talos_closed_loop — the port's examples/talos_kinodynamics.py on the
+               card, f32, uncut (T=100, the biped gait at 0.1 m/s, the
+               example's ID with 6D feet and 60 ADMM steps, simulator dt
+               1e-3, 10 inner steps a tick), 30 MPC ticks: the JAX
+               package's smoke gate (finite, base z within 0.1 m of its
+               start); loop_readings as phase 12.
+Phases 4-10, 12, 14-16 and 18 drive the main paths.  The kernels' launch
 counters are zeroed just before each of them (after the latency engine's and
 the closed loop's set-up, whose first solves run before the path) and read
 just after (a `<phase>_launches` line): each must have launched every kernel
 it runs (phase 7 the six of the serial tick; phase 8 the same with K6 in
 place of K3, and K3 never; phases 9-10 the full-dynamics stage kernels and
-never the kinodynamics ones; phase 12 the five solver kernels exactly once a
-tick and the three closed-loop kernels exactly once an inner step; phases
-14-16 the three wide kernels, K3 and K4, and never the Go2 stage kernels; no
-Go2 phase a wide kernel).  The kernel summary's `launches` is the sum over
-those eleven runs; the launches of phases 3, 11 and 13 and of phase 12's
-timings are not counted.  Its `bound_ms` is the larger of the bytes each
+never the kinodynamics ones; phases 12 and 18 the five solver kernels
+exactly once a tick, the three inner kernels exactly once an inner step and
+the state derivative exactly twice a tick, phase 18 the wide ones of each
+and never the Go2 ones; phases 14-16 the three wide kernels, K3 and K4, and
+never the Go2 stage kernels; no Go2 phase a wide kernel).  The kernel
+summary's `launches` is the sum over those twelve runs; the launches of
+phases 3, 11, 13 and 17 and of phases 12's and 18's timings are not
+counted.  Its `bound_ms` is the larger of the bytes each
 kernel moves (inputs read once, outputs written once, at the summary's
 shape) over 3.35 TB/s and its counted FLOPs over 67 TFLOP/s (H100 SXM,
 FP32 outside the tensor cores); FLOPs of the rigid-body arithmetic of K1,
@@ -152,23 +171,47 @@ PATH_KERNELS = dict(batched=SOLVER_KERNELS, fixture=SOLVER_KERNELS, mpc=SOLVER_K
                     fd_mpc=FD_SOLVER_KERNELS + ("fd_dynamics",),
                     talos_batched=TALOS_SOLVER_KERNELS, talos_fixture=TALOS_SOLVER_KERNELS,
                     talos_mpc=TALOS_SOLVER_KERNELS)
-PATH_KERNELS["closed_loop"] = SOLVER_KERNELS + ("id_assemble", "qp_admm", "sim_step")
-# launches of a closed-loop run: each tick's MPC iteration launches each
-# solver kernel once, each inner step each of the three once
-PATH_EXACT = dict(closed_loop=lambda ticks: {
-    **dict.fromkeys(SOLVER_KERNELS, ticks),
-    **dict.fromkeys(("id_assemble", "qp_admm", "sim_step"), 10 * ticks)})
+CLOSED_LOOP_T = 50  # examples/go2_kinodynamics.py's horizon
+CLOSED_LOOP_TICKS = 160  # tests/test_walking.py:181
+TALOS_LOOP_T = 100  # examples/talos_kinodynamics.py's horizon
+TALOS_LOOP_TICKS = 30  # tests/test_examples_smoke.py:36-40 runs 25
+# the closed loops' kernels: the inner step's ID and simulator (10 a tick)
+# and the tick's two state derivatives
+INNER_KERNELS = ("id_assemble", "qp_admm", "sim_step")
+TALOS_INNER_KERNELS = ("wide_id_assemble", "qp_admm", "wide_sim_step")
+WIDE_LOOP_KERNELS = ("wide_id_assemble", "wide_sim_step", "wide_state_derivative")
+PATH_KERNELS["closed_loop"] = SOLVER_KERNELS + INNER_KERNELS + ("state_derivative",)
+PATH_KERNELS["talos_closed_loop"] = (TALOS_SOLVER_KERNELS + TALOS_INNER_KERNELS
+                                     + ("wide_state_derivative",))
+
+
+def loop_launches(solver, inner, refs, ticks):
+    """Launches of a closed-loop run: each tick's MPC iteration launches
+    each solver kernel once, each inner step each inner kernel once, and
+    each tick's references the state derivative twice."""
+    return {**dict.fromkeys(solver, ticks), **dict.fromkeys(inner, 10 * ticks),
+            refs: 2 * ticks}
+
+
+PATH_EXACT = dict(
+    closed_loop=loop_launches(SOLVER_KERNELS, INNER_KERNELS, "state_derivative",
+                              CLOSED_LOOP_TICKS),
+    talos_closed_loop=loop_launches(TALOS_SOLVER_KERNELS, TALOS_INNER_KERNELS,
+                                    "wide_state_derivative", TALOS_LOOP_TICKS))
+_LOOP_ABSENT = ("parallel_riccati_backward", "tick_refs", "fd_stage_linearize", "fd_stage_eval",
+                "fd_dynamics")
 PATH_ABSENT = dict(latency=("riccati_backward",),
                    fd_batched=("stage_linearize", "stage_eval"),
                    fd_mpc=("stage_linearize", "stage_eval"),
-                   closed_loop=("parallel_riccati_backward", "tick_refs", "fd_stage_linearize",
-                                "fd_stage_eval", "fd_dynamics"),
+                   closed_loop=_LOOP_ABSENT,
                    talos_batched=GO2_STAGE_KERNELS, talos_fixture=GO2_STAGE_KERNELS,
-                   talos_mpc=GO2_STAGE_KERNELS)
+                   talos_mpc=GO2_STAGE_KERNELS,
+                   talos_closed_loop=GO2_STAGE_KERNELS + _LOOP_ABSENT
+                   + ("id_assemble", "sim_step", "state_derivative"))
 # no Go2 path launches a wide kernel
 for _path in ("batched", "fixture", "mpc", "fused", "latency", "fd_batched", "fd_mpc",
               "closed_loop"):
-    PATH_ABSENT[_path] = PATH_ABSENT.get(_path, ()) + WIDE_KERNELS
+    PATH_ABSENT[_path] = PATH_ABSENT.get(_path, ()) + WIDE_KERNELS + WIDE_LOOP_KERNELS
 FD_MPC_T = 50  # examples/go2_fulldynamics.py's horizon
 TALOS_CONE_B, TALOS_CONE_T = 2, 10  # the wrench-cone case of phase_talos_kernels
 # most multiplier rounds of the Talos f32 fixture re-solve: two
@@ -183,12 +226,17 @@ TALOS_F32_ROUNDS = 8
 # candidates' gaps and costs losing most)
 F32_WIDE_TOL = dict(wide_stage_linearize=5e-5, wide_term_linearize=2e-6,
                     wide_stage_eval=5e-4)
-CLOSED_LOOP_T = 50  # examples/go2_kinodynamics.py's horizon
-CLOSED_LOOP_TICKS = 160  # tests/test_walking.py:181
 # f32 closed-loop kernels vs their twin in f64 (see phase_id_sim_kernels)
 F32_ID_TOL = 1e-6
 F32_QP_TOL = 2e-2
 F32_SIM_TOL = 1e-5
+# f32 Talos closed-loop kernels and K11 vs their twin in f64 (see
+# phase_id_sim_kernels): ten times the f32 twin's own distance from the
+# f64 twin in that phase's recipe
+# (CPU, B=1 and 128: 6.5e-7, 6.4e-2 on z and y, 4.5e-5, 2.4e-6 and 1.6e-6;
+# the f32 ADMM at Talos's 40 variables and forces of ~450 N keeps little)
+F32_TALOS_TOL = dict(wide_id_assemble=6.5e-6, qp_admm=6.4e-1, wide_sim_step=4.5e-4,
+                     state_derivative=2.4e-5, wide_state_derivative=1.6e-5)
 # H100 SXM peaks from NVIDIA's datasheet: FP32 outside the tensor
 # cores, and HBM
 F32_FLOPS = 67e12
@@ -1132,16 +1180,18 @@ def phase_latency(device, fused, carry0, setup_s):
           donated_trace=trace)
 
 
-def ptxas_report(log, names):
+def ptxas_report(log, names, wide=False):
     """{kernel: {"registers": n, "stack_bytes": n}} of the kernels whose
     mangled names contain one of `names`, read from nvcc's -Xptxas -v log:
     the kernel's "Used" line, whose cumulative stack size counts the stack
     of the device functions it calls (a kernel's own "stack frame" line
-    reads 0 where its work sits in a function that was not inlined)."""
+    reads 0 where its work sits in a function that was not inlined).  With
+    `wide`, the instances compiled over csrc/stage_wide.cuh (their
+    parameters' types are in the namespace smpc_wide), else the others."""
     out, cur = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            cur = next((n for n in names if n in ln), None)
+            cur = next((n for n in names if n in ln and ("smpc_wide" in ln) == wide), None)
             if cur is not None:
                 cur = f"{cur}_{'f64' if f'{cur}IdE' in ln else 'f32'}"
         elif cur is not None and "Used" in ln and "registers" in ln:
@@ -1194,6 +1244,80 @@ def id_sim_case(device, dtype, nb, seed):
     return ids, sim, idin, simin
 
 
+def talos_id_sim_case(device, dtype, nb, seed):
+    """The Talos example's ID (and one with contact_motion_equality), the
+    simulator with the ground at the standing soles, and nb perturbed Talos
+    robots made from numpy with a fixed seed: ID states and targets (6D
+    wrenches) with the contact sets {both, left lifted, right lifted} in
+    turns; simulator states in turns standing (perturbed velocities), with
+    the left knee bent 0.3 rad (that sole off the ground) and with the base
+    rising at 1 m/s (both contacts pull in the first solve and are dropped
+    in the second)."""
+    from simple_mpc_tpu_torch.configs import talos_handler
+    from simple_mpc_tpu_torch.examples.loop import foot_height
+    from simple_mpc_tpu_torch.examples.talos_kinodynamics import ID_SETTINGS
+    from simple_mpc_tpu_torch.id.kinodynamics_id import IDSettings, KinodynamicsID
+    from simple_mpc_tpu_torch.sim.simulator import SimSettings, Simulator
+
+    mh = talos_handler()
+    ids = [KinodynamicsID(mh, 1e-3, IDSettings(**ID_SETTINGS, contact_motion_equality=eq),
+                          device=device, dtype=dtype) for eq in (False, True)]
+    sim = Simulator(mh.model, mh.feet_frame_ids,
+                    SimSettings(dt=1e-3, ground_height=foot_height(mh)), device=device)
+    rng = np.random.default_rng(seed)
+    x0 = np.asarray(mh.reference_state)
+    nq, nv = mh.model.nq, mh.model.nv
+
+    def configs(scale):
+        q = x0[:nq] + scale * rng.normal(size=(nb, nq))
+        q[:, 3:7] /= np.linalg.norm(q[:, 3:7], axis=1, keepdims=True)
+        return q
+
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
+    contacts = np.array([[1.0, 1.0], [0.0, 1.0], [1.0, 0.0]])[np.arange(nb) % 3]
+    idin = dict(q=t(configs(0.02)), v=t(0.1 * rng.normal(size=(nb, nv))),
+                targets=dict(q_t=t(configs(0.01)), v_t=t(0.1 * rng.normal(size=(nb, nv))),
+                             a_t=t(rng.normal(size=(nb, nv))), contacts=t(contacts),
+                             f_t=t(10.0 * rng.normal(size=(nb, 2, 6))
+                                   + [0.0, 0.0, 450.0, 0.0, 0.0, 0.0])))
+    qs = np.repeat(x0[None, :nq], nb, 0)
+    vs = 0.05 * rng.normal(size=(nb, nv))
+    qs[1::3, 10] += 0.3  # leg_left_4_joint, the left knee
+    vs[2::3, 2] = 1.0
+    simin = (t(qs), t(vs), t(0.5 * rng.normal(size=(nb, nv - 6))))
+    return ids, sim, idin, simin
+
+
+def state_derivative_case(device, dtype, n, seed, robot):
+    """A kinodynamics OCP of `robot` ("go2": the closed-loop example's
+    weights, point feet; "talos": the Talos example's, 6D feet) and n lanes
+    of states, controls and contact masks perturbed from numpy with a fixed
+    seed: (ocp, x (n,nx), u (n,nu), stage params with leading n)."""
+    from simple_mpc_tpu_torch.configs import go2_handler, go2_kinodynamics_config, talos_handler
+    from simple_mpc_tpu_torch.examples.talos_kinodynamics import talos_kinodynamics_config
+    from simple_mpc_tpu_torch.ocp.base import tree_map
+    from simple_mpc_tpu_torch.ocp.kinodynamics import KinodynamicsOCP
+
+    talos = robot == "talos"
+    mh = talos_handler() if talos else go2_handler()
+    cfg = talos_kinodynamics_config(mh) if talos else go2_kinodynamics_config(mh)
+    ocp = KinodynamicsOCP(cfg, mh, device, dtype)
+    x0 = np.asarray(mh.reference_state)
+    ocp.create_problem(x0, 2, 6 if talos else 3, -9.81, False)
+    rng = np.random.default_rng(seed)
+    nq = mh.model.nq
+    x = np.repeat(x0[None], n, 0) + 0.02 * rng.normal(size=(n, x0.shape[0]))
+    x[:, 3:7] /= np.linalg.norm(x[:, 3:7], axis=1, keepdims=True)
+    x[:, nq:] = 0.2 * rng.normal(size=(n, mh.model.nv))
+    u0 = ocp.get_reference_control(0).double().cpu().numpy()
+    u = u0 + np.where(np.abs(u0) > 1.0, 20.0, 1.0) * rng.normal(size=(n, ocp.nu))
+    act = (rng.random((n, ocp.nk)) > 0.3).astype(np.float64)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
+    p = tree_map(lambda a: a[0][None].expand((n,) + tuple(a.shape[1:])).contiguous(),
+                 ocp.problem.stage_params)
+    return ocp, t(x), t(u), p._replace(contact_active=t(act))
+
+
 def qp_flops(n, m, iters):
     """Counted FLOPs of one ADMM solve: K = H + sigma I + A' diag(rho) A, its
     Cholesky, per step A'w, the two triangular solves, Ax and ~10 m
@@ -1202,29 +1326,59 @@ def qp_flops(n, m, iters):
             + 4 * m * n + 2 * n * n)
 
 
-def phase_id_sim_kernels(device, ptxas_log=""):
-    """K8 (qp_admm, id_assemble) and K10 (sim_step) against their twins on
-    the card, at B=1 (the closed loop's shape) and B=128, f32 and f64, on
-    perturbed Go2 states (id_sim_case).  Gates: in f64 the kernel within
-    1e-10 of the twin (max|a - b| / max(1, max|b|); for l and u over the
-    finite rows, the rows off at +-1e20 equal); the QP's residuals within
-    1e-10 of the twin's relative to the scale of the sums that form them;
-    in f32 the kernel against the twin in f64 on the same inputs within
-    F32_ID_TOL, F32_QP_TOL (z and y; the f32 residuals are roundoff and
-    printed) and F32_SIM_TOL, the masks of both solves equal to the twin's
-    in both types.  Those three are about four to seven times the f32
-    twin's own distance to the f64 twin on these inputs (printed beside
-    them).  The QP runs on the twin's assembly of each dtype, cold and
-    warm-started from its cold solution."""
+def qp_spread(H, g, A, l, u, z0, y0, want, seed=3):
+    """The QP twin's own response (max bound_rel over z and y) to a 1e-15
+    relative move, of random sign from numpy with a fixed seed, of every
+    entry of H, g and A."""
     from simple_mpc_tpu_torch import kernels
 
+    rng = np.random.default_rng(seed)
+
+    def moved(x):
+        return x * (1.0 + 1e-15 * torch.as_tensor(rng.choice([-1.0, 1.0], size=x.shape),
+                                                   dtype=x.dtype, device=x.device))
+
+    got = kernels.solve_qp(moved(H), moved(g), moved(A), l, u, 60, z0=z0, y0=y0)
+    return max(bound_rel(a, b) for a, b in zip(got[:2], want[:2]))
+
+
+def phase_id_sim_kernels(device, ptxas_log="", robot="go2"):
+    """K8 (qp_admm, id_assemble) and K10 (sim_step) against their twins on
+    the card, at B=1 (the closed loop's shape) and B=128, f32 and f64, on
+    perturbed Go2 states (id_sim_case), or with robot="talos" the wide
+    instances (wide_id_assemble with 6D wrenches and wrench cones,
+    qp_admm at n=40, m=98 and 110, wide_sim_step at 23 joints) on
+    perturbed Talos states (talos_id_sim_case) and K11 (state_derivative
+    on Go2, wide_state_derivative on Talos) at N=1 and N=128
+    (state_derivative_case).  Gates: in f64 the kernel within 1e-10 of the
+    twin (max|a - b| / max(1, max|b|); for l and u over the finite rows, the
+    rows off at +-1e20 equal); the QP's residuals within 1e-10 of the
+    twin's relative to the scale of the sums that form them; in f32 the
+    kernel against the twin in f64 on the same inputs within F32_ID_TOL,
+    F32_QP_TOL (z and y; the f32 residuals are roundoff and printed) and
+    F32_SIM_TOL (Go2) or F32_TALOS_TOL (Talos and K11), the masks of both
+    solves equal to the twin's in both types.  Those are about four to ten
+    times the f32 twin's own distance to the f64 twin on these inputs
+    (printed beside them).  The QP runs on the twin's assembly of each
+    dtype, cold and warm-started from its cold solution.  On Talos the f64
+    QP gate is max(1e-10, ten times the twin's own response to a 1e-15
+    relative move of H, g and A, `qp_spread`): at 40 variables, forces of
+    ~450 N and weights from 0.05 to 1e3 that response alone reaches
+    1.1e-10 (CPU), so no summation order meets a fixed 1e-10."""
+    from simple_mpc_tpu_torch import kernels
+
+    talos = robot == "talos"
+    ida, sims = ("wide_id_assemble", "wide_sim_step") if talos else ("id_assemble", "sim_step")
+    tol32 = F32_TALOS_TOL if talos else {ida: F32_ID_TOL, "qp_admm": F32_QP_TOL,
+                                         sims: F32_SIM_TOL}
+    case = talos_id_sim_case if talos else id_sim_case
     out = {}
     for dtype in (torch.float32, torch.float64):
         f32 = dtype == torch.float32
         t0 = time.perf_counter()
-        errs, abs_err, vs64, times, bounds, masks = {}, {}, {}, {}, {}, {}
+        errs, abs_err, vs64, times, bounds, masks, spreads = {}, {}, {}, {}, {}, {}, []
         for nb in (1, B):
-            ids, sim, idin, simin = id_sim_case(device, dtype, nb, seed=11)
+            ids, sim, idin, simin = case(device, dtype, nb, seed=11)
 
             def gate(name, got, want, want64, tol, keep=None):
                 for a in got:
@@ -1250,7 +1404,7 @@ def phase_id_sim_kernels(device, ptxas_log=""):
                 want = idq._assemble_core(*args)
                 want64 = idq._assemble_core(idin["q"].double(), idin["v"].double(),
                                             as64(idin["targets"])) if f32 else None
-                gate("id_assemble", got, want, want64, F32_ID_TOL if f32 else 1e-10)
+                gate(ida, got, want, want64, tol32[ida] if f32 else 1e-10)
                 H, g, A, l, u = want[:5]
                 qp64 = ([x.double() for x in (H, g, A, l, u)] if f32 else None)
                 cold = kernels.qp_admm(H, g, A, l, u, iters=60)
@@ -1261,8 +1415,11 @@ def phase_id_sim_kernels(device, ptxas_log=""):
                     want64 = (kernels.solve_qp(*qp64, 60, z0=None if z0 is None else z0.double(),
                                                y0=None if y0 is None else y0.double())
                               if f32 else None)
-                    gate("qp_admm", got, want, want64, F32_QP_TOL if f32 else 1e-10,
-                         keep=(0, 1))
+                    qtol = tol32["qp_admm"] if f32 else 1e-10
+                    if talos and not f32:
+                        spreads.append(qp_spread(H, g, A, l, u, z0, y0, want))
+                        qtol = max(qtol, 10.0 * spreads[-1])
+                    gate("qp_admm", got, want, want64, qtol, keep=(0, 1))
                     if not f32:  # the residuals, against the scale of their sums
                         scale = 1.0 + float(g.abs().max() + (H.abs().sum(-1).max()
                                             * want.z.abs().max()) + A.abs().sum(-2).max()
@@ -1275,9 +1432,9 @@ def phase_id_sim_kernels(device, ptxas_log=""):
             want64 = sim.step_plain(*(x.double() for x in simin)) if f32 else None
             for ref in (want, want64) if f32 else (want,):
                 check(torch.equal(got.active, ref.active.to(dtype)),
-                      f"sim_step {dtype} B={nb}: contact masks differ from the twin's")
-            gate("sim_step", got[:3], want[:3], want64 and want64[:3],
-                 F32_SIM_TOL if f32 else 1e-10)
+                      f"{sims} {dtype} B={nb}: contact masks differ from the twin's")
+            gate(sims, got[:3], want[:3], want64 and want64[:3],
+                 tol32[sims] if f32 else 1e-10)
             masks[f"B{nb}"] = got.active.sum(dim=0).tolist()
 
             idq = ids[0]
@@ -1285,32 +1442,62 @@ def phase_id_sim_kernels(device, ptxas_log=""):
             H, g, A, l, u, M, h, JcT = kernels.id_assemble(idq, *args)
             qp_args = (H, g, A, l, u)
             slow = SLOW_REPS
-            times[f"B{nb}"] = dict(
-                id_assemble=(cuda_ms(lambda: kernels.id_assemble(idq, *args), REPS),
-                             cuda_ms(lambda: idq._assemble_core(*args), slow)),
-                qp_admm=(cuda_ms(lambda: kernels.qp_admm(*qp_args, iters=60), REPS),
-                         cuda_ms(lambda: kernels.solve_qp(*qp_args, 60), slow)),
-                sim_step=(cuda_ms(lambda: kernels.sim_step(sim, *simin), REPS),
-                          cuda_ms(lambda: sim.step_plain(*simin), slow)))
+            times[f"B{nb}"] = {
+                ida: (cuda_ms(lambda: kernels.id_assemble(idq, *args), REPS),
+                      cuda_ms(lambda: idq._assemble_core(*args), slow)),
+                "qp_admm": (cuda_ms(lambda: kernels.qp_admm(*qp_args, iters=60), REPS),
+                            cuda_ms(lambda: kernels.solve_qp(*qp_args, 60), slow)),
+                sims: (cuda_ms(lambda: kernels.sim_step(sim, *simin), REPS),
+                       cuda_ms(lambda: sim.step_plain(*simin), slow))}
             n, m = H.shape[-1], A.shape[-2]
-            nr = idq.nu + 6 + 2 * 3 * idq.nk
+            nr = idq.nu + 6 + 2 * idq.fdim * idq.nk
             nv, nc = idq.nv, 3 * idq.nk
-            per = dict(
-                id_assemble=(2 * nr * n * n + 2 * nr * n,
-                             nbytes((args, H, g, A, l, u, M, h, JcT))),
-                qp_admm=(qp_flops(n, m, 60), nbytes((qp_args, cold))),
-                sim_step=(2 * k7_flops(nv, nc), nbytes((simin, got[:3]))))
+            per = {
+                ida: (2 * nr * n * n + 2 * nr * n, nbytes((args, H, g, A, l, u, M, h, JcT))),
+                "qp_admm": (qp_flops(n, m, 60), nbytes((qp_args, cold))),
+                sims: (2 * k7_flops(nv, nc), nbytes((simin, got[:3])))}
+            if talos:  # K11, both instances
+                for sd, bot in (("state_derivative", "go2"), ("wide_state_derivative", "talos")):
+                    ocp, x, uu, p = state_derivative_case(device, dtype, nb, 13, bot)
+                    got = kernels.state_derivative(ocp, x, uu, p)
+                    want = kernels.state_derivative_plain(ocp, x, uu, p)
+                    want64 = None
+                    if f32:
+                        ocp64, x64, u64, p64 = state_derivative_case(device, torch.float64, nb,
+                                                                     13, bot)
+                        want64 = kernels.state_derivative_plain(ocp64, x64, u64, p64)
+                    gate(sd, (got,), (want,), None if want64 is None else (want64,),
+                         tol32[sd] if f32 else 1e-10)
+                    times[f"B{nb}"][sd] = (
+                        cuda_ms(lambda: kernels.state_derivative(ocp, x, uu, p), REPS),
+                        cuda_ms(lambda: kernels.state_derivative_plain(ocp, x, uu, p), slow))
+                    # FK and the centroidal algebra are not counted: a bound by bytes
+                    per[sd] = (0, nbytes((x, uu, p.contact_active, got)))
             bounds[f"B{nb}"] = {k: roofline(f * nb, mv) for k, (f, mv) in per.items()}
         name = str(dtype).replace("torch.", "")
         out[name] = dict(errs=errs, abs_err=abs_err, times=times, bounds=bounds)
-        phase(f"id_sim_kernels_{name}", t0, tol=dict(
-                  id_assemble=F32_ID_TOL, qp_admm=F32_QP_TOL, sim_step=F32_SIM_TOL)
-              if f32 else 1e-10, rel_err=errs, max_abs_err=abs_err,
+        ptx = ptxas_report(ptxas_log, ("qp_admm_kernel", "id_assemble_kernel",
+                                       "sim_step_kernel"))
+        if talos:
+            ptx = {k: v for k, v in ptx.items() if k.startswith("qp_admm")}
+            ptx.update({f"wide_{k}": v for k, v in ptxas_report(
+                ptxas_log, ("id_assemble_kernel", "sim_step_kernel",
+                            "state_derivative_kernel"), wide=True).items()})
+            ptx.update(ptxas_report(ptxas_log, ("state_derivative_kernel",)))
+        phase(f"{'talos_' if talos else ''}id_sim_kernels_{name}", t0,
+              tol=tol32 if f32 else 1e-10, rel_err=errs, max_abs_err=abs_err,
               kernel_and_twin_vs_f64_twin=vs64 or None, masks_active_per_foot=masks,
               ms_kernel_vs_plain=times, bound_ms=bounds if f32 else None,
-              ptxas=ptxas_report(ptxas_log, ("qp_admm_kernel", "id_assemble_kernel",
-                                             "sim_step_kernel")))
+              qp_shape=dict(n=int(n), m=[kernels._id_rows(i) for i in ids]) if talos else None,
+              qp_f64_twin_spread=spreads or None,
+              ptxas=ptx)
     return out
+
+
+def phase_talos_id_sim_kernels(device, ptxas_log=""):
+    """The Talos closed loop's kernels against their twins on the card
+    (phase_id_sim_kernels with robot="talos")."""
+    return phase_id_sim_kernels(device, ptxas_log, robot="talos")
 
 
 def bound_rel(a, b):
@@ -1345,53 +1532,23 @@ def closed_loop_setup(device):
     return setup(CLOSED_LOOP_T, device, torch.float32)
 
 
-def phase_closed_loop(device, mpc, mh, idq):
-    """The Go2 kinodynamics closed loop of the port's example
-    (examples/go2_kinodynamics.py: T=50, trot 10/30/10/30 at 0.2 m/s, apex
-    0.05 m, mu_init 1e-8, the example's IDSettings with qp_iters 60, the
-    simulator at dt 1e-3 with 10 inner steps a tick), f32, for
-    CLOSED_LOOP_TICKS MPC ticks.  Gates (tests/test_walking.py:184-209):
-    finite; base z within 0.08 m of its start; progress > 0.02 m; |v| < 20;
-    stance feet slip < 2 cm between ticks.  Prints p50/p99 on the host
-    clock of the MPC iteration, of the tick's references (state
-    derivatives, reference forces and the 10 interpolated targets), of
-    the inner step (ID and simulator: the interpolation is not in it) and
-    of the inner step with a tenth of its tick's references (the whole
-    1 kHz cost a step), the three kernels' CUDA-event
-    medians at the loop's last state, profiler traces of 10 inner steps and
-    of one tick's references, and the host time of interpolating one inner
-    step's state target against a tick's ten at once."""
+def loop_readings(mpc, mh, idq, log, q, v):
+    """The timings of a closed-loop run for its phase line: p50/p99 on the
+    host clock of the MPC iteration, of the tick's references (state
+    derivatives, reference forces and the 10 interpolated targets), of the
+    inner step (ID and simulator: the interpolation is not in it) and of
+    the inner step with a tenth of its tick's references (the whole 1 kHz
+    cost a step); the CUDA-event medians of the three inner kernels and of
+    the state derivative at the loop's last state (q, v); profiler traces
+    of 10 inner steps and of one tick's references; the host time of
+    interpolating one inner step's state target against a tick's ten at
+    once.  The launches of these timings are put back out of the counters."""
     from simple_mpc_tpu_torch import kernels
-    from simple_mpc_tpu_torch.examples.go2_kinodynamics import run
     from simple_mpc_tpu_torch.examples.loop import foot_height
-    from simple_mpc_tpu_torch.ops import soa
     from simple_mpc_tpu_torch.sim.simulator import SimSettings, Simulator
     from simple_mpc_tpu_torch.utils.interpolator import Interpolator
 
-    t0 = time.perf_counter()
-    log = run(mpc, mh, idq, n_steps=CLOSED_LOOP_TICKS, log_every=0)
-    wall = time.perf_counter() - t0
-    # the loop's launches; those of the timings below are put back out
     loop_launches = {k: k.launches for k in kernels.KERNELS}
-    q, v = np.stack(log["q"]), np.stack(log["v"])
-    check(np.isfinite(q).all() and np.isfinite(v).all(), "closed loop: non-finite state")
-    z0 = q[0, 2]
-    check(bool((np.abs(q[:, 2] - z0) < 0.08).all()),
-          f"closed loop: fell: base z {q[:, 2].min():.3f}..{q[:, 2].max():.3f}")
-    check(q[-1, 0] - q[0, 0] > 0.02, f"closed loop: no progress: x {q[0, 0]:.4f} -> {q[-1, 0]:.4f}")
-    check(np.abs(v).max() < 20.0, f"closed loop: |v| {np.abs(v).max():.2f} >= 20")
-    ids = np.asarray(mh.feet_frame_ids)
-    qt = torch.as_tensor(q.T)
-    oR, op = soa.fk_world(mh.model, qt)
-    fp = soa.frame_placements_world(mh.model, oR, op, ids)[1].permute(2, 0, 1).numpy()
-    ground = fp[0, :, 2].mean()
-    slip_max = 0.0
-    for i in range(1, len(fp)):
-        on = (fp[i - 1, :, 2] < ground + 0.005) & (fp[i, :, 2] < ground + 0.005)
-        slip = np.linalg.norm(fp[i, :, :2] - fp[i - 1, :, :2], axis=1)
-        if on.any():
-            slip_max = max(slip_max, float(slip[on].max()))
-    check(slip_max < 0.02, f"closed loop: stance slip {slip_max:.4f} m >= 0.02")
     tick_ms = 1e3 * np.asarray(log["solve_time"])
     refs_ms = 1e3 * np.asarray(log["refs_time"])
     inner_ms = 1e3 * np.asarray(log["inner_time"])
@@ -1399,7 +1556,7 @@ def phase_closed_loop(device, mpc, mh, idq):
     # over its 10 inner steps, plus the step (ID and simulator)
     step_all_ms = refs_ms / 10 + inner_ms
 
-    # the three kernels at the loop's last state, and a trace of inner steps
+    # the kernels at the loop's last state, and a trace of inner steps
     dev, dt = mpc.xs.device, mpc.xs.dtype
     qd = torch.as_tensor(q[-1], dtype=dt, device=dev)
     vd = torch.as_tensor(v[-1], dtype=dt, device=dev)
@@ -1409,9 +1566,12 @@ def phase_closed_loop(device, mpc, mh, idq):
     qb, vb = qd[None], vd[None]
     H, g, A, l, u = kernels.id_assemble(idq, qb, vb, targets)[:5]
     tau = idq.solve(0.0, qd, vd)
-    kms = dict(id_assemble=cuda_ms(lambda: kernels.id_assemble(idq, qb, vb, targets), REPS),
-               qp_admm=cuda_ms(lambda: kernels.qp_admm(H, g, A, l, u, iters=60), REPS),
-               sim_step=cuda_ms(lambda: kernels.sim_step(sim, qb, vb, tau[None]), REPS))
+    wide = kernels.body_route(mh.model, idq.nk, idq.fdim) == "wide"
+    pre = "wide_" if wide else ""
+    kms = {f"{pre}id_assemble": cuda_ms(lambda: kernels.id_assemble(idq, qb, vb, targets), REPS),
+           "qp_admm": cuda_ms(lambda: kernels.qp_admm(H, g, A, l, u, iters=60), REPS),
+           f"{pre}sim_step": cuda_ms(lambda: kernels.sim_step(sim, qb, vb, tau[None]), REPS),
+           f"{pre}state_derivative": cuda_ms(lambda: mpc.get_state_derivative(0), REPS)}
 
     def inner_steps():
         qq, vv = qd, vd
@@ -1447,20 +1607,93 @@ def phase_closed_loop(device, mpc, mh, idq):
                      ten_delays=host_ms(lambda: interp.interpolate_state(delays, 0.01, xs)))
     for k, n in loop_launches.items():
         k.launches = n
+    return dict(
+        tick_p50_ms=float(np.percentile(tick_ms, 50)),
+        tick_p99_ms=float(np.percentile(tick_ms, 99)),
+        refs_p50_ms=float(np.percentile(refs_ms, 50)),
+        refs_p99_ms=float(np.percentile(refs_ms, 99)),
+        inner_step_p50_ms=float(np.percentile(inner_ms, 50)),
+        inner_step_p99_ms=float(np.percentile(inner_ms, 99)),
+        inner_step_with_refs_p50_ms=float(np.percentile(step_all_ms, 50)),
+        inner_step_with_refs_p99_ms=float(np.percentile(step_all_ms, 99)),
+        kernel_ms=kms, ten_inner_steps_trace=trace, tick_refs_trace=refs_trace,
+        interpolate_state_host_ms=interp_ms)
+
+
+def phase_closed_loop(device, mpc, mh, idq):
+    """The Go2 kinodynamics closed loop of the port's example
+    (examples/go2_kinodynamics.py: T=50, trot 10/30/10/30 at 0.2 m/s, apex
+    0.05 m, mu_init 1e-8, the example's IDSettings with qp_iters 60, the
+    simulator at dt 1e-3 with 10 inner steps a tick), f32, for
+    CLOSED_LOOP_TICKS MPC ticks.  Gates (tests/test_walking.py:184-209):
+    finite; base z within 0.08 m of its start; progress > 0.02 m; |v| < 20;
+    stance feet slip < 2 cm between ticks.  Prints `loop_readings`."""
+    from simple_mpc_tpu_torch.examples.go2_kinodynamics import run
+    from simple_mpc_tpu_torch.ops import soa
+
+    t0 = time.perf_counter()
+    log = run(mpc, mh, idq, n_steps=CLOSED_LOOP_TICKS, log_every=0)
+    wall = time.perf_counter() - t0
+    q, v = np.stack(log["q"]), np.stack(log["v"])
+    check(np.isfinite(q).all() and np.isfinite(v).all(), "closed loop: non-finite state")
+    z0 = q[0, 2]
+    check(bool((np.abs(q[:, 2] - z0) < 0.08).all()),
+          f"closed loop: fell: base z {q[:, 2].min():.3f}..{q[:, 2].max():.3f}")
+    check(q[-1, 0] - q[0, 0] > 0.02, f"closed loop: no progress: x {q[0, 0]:.4f} -> {q[-1, 0]:.4f}")
+    check(np.abs(v).max() < 20.0, f"closed loop: |v| {np.abs(v).max():.2f} >= 20")
+    ids = np.asarray(mh.feet_frame_ids)
+    qt = torch.as_tensor(q.T)
+    oR, op = soa.fk_world(mh.model, qt)
+    fp = soa.frame_placements_world(mh.model, oR, op, ids)[1].permute(2, 0, 1).numpy()
+    ground = fp[0, :, 2].mean()
+    slip_max = 0.0
+    for i in range(1, len(fp)):
+        on = (fp[i - 1, :, 2] < ground + 0.005) & (fp[i, :, 2] < ground + 0.005)
+        slip = np.linalg.norm(fp[i, :, :2] - fp[i - 1, :, :2], axis=1)
+        if on.any():
+            slip_max = max(slip_max, float(slip[on].max()))
+    check(slip_max < 0.02, f"closed loop: stance slip {slip_max:.4f} m >= 0.02")
     phase("closed_loop", t0, T=CLOSED_LOOP_T, ticks=CLOSED_LOOP_TICKS, inner_steps_per_tick=10,
-          dtype="float32", wall_s=wall,
-          tick_p50_ms=float(np.percentile(tick_ms, 50)),
-          tick_p99_ms=float(np.percentile(tick_ms, 99)),
-          refs_p50_ms=float(np.percentile(refs_ms, 50)),
-          refs_p99_ms=float(np.percentile(refs_ms, 99)),
-          inner_step_p50_ms=float(np.percentile(inner_ms, 50)),
-          inner_step_p99_ms=float(np.percentile(inner_ms, 99)),
-          inner_step_with_refs_p50_ms=float(np.percentile(step_all_ms, 50)),
-          inner_step_with_refs_p99_ms=float(np.percentile(step_all_ms, 99)),
-          kernel_ms=kms, base_z=[float(q[:, 2].min()), float(q[:, 2].max())],
+          dtype="float32", wall_s=wall, base_z=[float(q[:, 2].min()), float(q[:, 2].max())],
           progress_m=float(q[-1, 0] - q[0, 0]), max_abs_v=float(np.abs(v).max()),
-          max_stance_slip_m=slip_max, ten_inner_steps_trace=trace,
-          tick_refs_trace=refs_trace, interpolate_state_host_ms=interp_ms)
+          max_stance_slip_m=slip_max, **loop_readings(mpc, mh, idq, log, q, v))
+
+
+def talos_closed_loop_setup(device):
+    """The port's Talos example's MPC, model handler and ID in f32 at
+    T=100 (their construction runs the MPC's first solve and the ID's dry
+    run)."""
+    from simple_mpc_tpu_torch.examples.talos_kinodynamics import setup
+
+    return setup(TALOS_LOOP_T, device, torch.float32)
+
+
+def phase_talos_closed_loop(device, mpc, mh, idq):
+    """The Talos kinodynamics closed loop of the port's example
+    (examples/talos_kinodynamics.py, uncut: T=100, the biped gait
+    20/80/20/80 at 0.1 m/s, apex 0.1 m, mu_init 1e-8, the example's weights
+    and IDSettings with 6D feet, wrench cones and qp_iters 60, the simulator
+    at dt 1e-3 with 10 inner steps a tick), f32, for TALOS_LOOP_TICKS MPC
+    ticks.  Gates (the JAX package's smoke gate,
+    tests/test_examples_smoke.py:36-40): finite; base z within 0.1 m of its
+    start.  Prints `loop_readings`, the base height range, the progress and
+    the contact forces' range."""
+    from simple_mpc_tpu_torch.examples.talos_kinodynamics import run
+
+    t0 = time.perf_counter()
+    log = run(mpc, mh, idq, n_steps=TALOS_LOOP_TICKS, log_every=0)
+    wall = time.perf_counter() - t0
+    q, v, f = np.stack(log["q"]), np.stack(log["v"]), np.stack(log["f"])
+    check(np.isfinite(q).all() and np.isfinite(v).all(), "talos closed loop: non-finite state")
+    z0 = q[0, 2]
+    check(bool((np.abs(q[:, 2] - z0) < 0.1).all()),
+          f"talos closed loop: fell: base z {q[:, 2].min():.3f}..{q[:, 2].max():.3f}")
+    phase("talos_closed_loop", t0, T=TALOS_LOOP_T, ticks=TALOS_LOOP_TICKS,
+          inner_steps_per_tick=10, dtype="float32", wall_s=wall,
+          base_z=[float(q[:, 2].min()), float(q[:, 2].max())], base_z0=float(z0),
+          progress_m=float(q[-1, 0] - q[0, 0]), max_abs_v=float(np.abs(v).max()),
+          contact_fz_range=[float(f[..., 2].min()), float(f[..., 2].max())],
+          **loop_readings(mpc, mh, idq, log, q, v))
 
 
 def talos_case(device, dtype, nb, nT, seed, force_cone=False):
@@ -1647,7 +1880,7 @@ def phase_talos_kernels(device, ptxas_log=""):
               talos_k3_k4_rel_err_vs_twin=k34, ms=times,
               bound_ms=bounds if f32 else None,
               ptxas=ptxas_report(ptxas_log, ("linearize_wide_kernel", "eval_wide_kernel",
-                                             "term_wide_kernel")) if f32 else None)
+                                             "term_wide_kernel"), wide=True) if f32 else None)
     return out
 
 
@@ -1828,7 +2061,9 @@ def drive_main_path(device):
                              ("closed_loop", phase_closed_loop, closed_loop_setup),
                              ("talos_batched", phase_talos_batched, None),
                              ("talos_fixture", phase_talos_fixture, None),
-                             ("talos_mpc", phase_talos_mpc, None)):
+                             ("talos_mpc", phase_talos_mpc, None),
+                             ("talos_closed_loop", phase_talos_closed_loop,
+                              talos_closed_loop_setup)):
         args = setup(device) if setup else ()
         kernels.reset_launches()
         run(device, *args)
@@ -1838,7 +2073,7 @@ def drive_main_path(device):
         for name in PATH_ABSENT.get(path, ()):
             check(counts[name] == 0, f"the {path} path launched {name}")
         if path in PATH_EXACT:
-            for name, n in PATH_EXACT[path](CLOSED_LOOP_TICKS).items():
+            for name, n in PATH_EXACT[path].items():
                 check(counts[name] == n, f"the {path} path launched {name} "
                       f"{counts[name]} times, not {n}")
         print(json.dumps({"phase": f"{path}_launches", "launches": counts}), flush=True)
@@ -1848,7 +2083,7 @@ def drive_main_path(device):
 
 
 PHASES = ("kernels", "fd_kernels", "id_sim_kernels", "fixture", "talos_kernels",
-          "talos_fixture")
+          "talos_fixture", "talos_id_sim_kernels", "talos_closed_loop")
 
 
 def main():
@@ -1887,7 +2122,10 @@ def main():
                     id_sim_kernels=lambda d: phase_id_sim_kernels(d, info["log"]),
                     fixture=phase_fixture,
                     talos_kernels=lambda d: phase_talos_kernels(d, info["log"]),
-                    talos_fixture=phase_talos_fixture)
+                    talos_fixture=phase_talos_fixture,
+                    talos_id_sim_kernels=lambda d: phase_talos_id_sim_kernels(d, info["log"]),
+                    talos_closed_loop=lambda d: phase_talos_closed_loop(
+                        d, *talos_closed_loop_setup(d)))
         for name in phases:
             runs[name](device)
         print(smi, flush=True)
@@ -1900,6 +2138,7 @@ def main():
     fdres = phase_fd_kernels(device)
     idres = phase_id_sim_kernels(device, info["log"])
     talres = phase_talos_kernels(device, info["log"])
+    talidres = phase_talos_id_sim_kernels(device, info["log"])
     launches = drive_main_path(device)
 
     replaces = dict(
@@ -1920,18 +2159,26 @@ def main():
         wide_stage_linearize=("linearize_wide.cu", "simple_mpc_tpu/solver/proxddp.py:271"),
         wide_stage_eval=("linearize_wide.cu", "simple_mpc_tpu/solver/proxddp.py:183"),
         wide_term_linearize=("linearize_wide.cu", "simple_mpc_tpu/solver/proxddp.py:352"),
+        state_derivative=("acc.cu", "simple_mpc_tpu/ocp/kinodynamics.py:531"),
+        wide_state_derivative=("acc_wide.cu", "simple_mpc_tpu/ocp/kinodynamics.py:531"),
+        wide_id_assemble=("id_wide.cu", "simple_mpc_tpu/id/kinodynamics_id.py:131"),
+        wide_sim_step=("sim_wide.cu", "simple_mpc_tpu/sim/simulator.py:60"),
     )
-    id32 = idres["float32"]
     # each kernel's readings from the phase that checked it (phase 3's
-    # K3 and K4 are Go2's; the Talos phase's are printed there)
+    # K3 and K4 are Go2's, qp_admm Go2's; the Talos phases' are printed
+    # there); the closed loops' kernels at B=1
     checked = (kres["float32"], fdres["float32"], talres["float32"])
+    loops = (idres["float32"], talidres["float32"])
     f32 = {k: {n: next(c[n][k] for c in checked if k in c["errs"])
                for n in ("abs_err", "times", "bounds")}
-           for k in replaces if k not in id32["errs"]}
-    f32.update({k: dict(abs_err=id32["abs_err"][k], times=id32["times"]["B1"][k],
-                        bounds=id32["bounds"]["B1"][k]) for k in id32["errs"]})
+           for k in replaces if not any(k in c["errs"] for c in loops)}
+    for c in reversed(loops):
+        f32.update({k: dict(abs_err=c["abs_err"][k], times=c["times"]["B1"][k],
+                            bounds=c["bounds"]["B1"][k]) for k in c["errs"]})
     shape = dict(parallel_riccati_backward=(1, T), fd_dynamics=(1, 1), qp_admm=(1, 1),
-                 id_assemble=(1, 1), sim_step=(1, 1))
+                 id_assemble=(1, 1), sim_step=(1, 1), state_derivative=(1, 1),
+                 wide_state_derivative=(1, 1), wide_id_assemble=(1, 1),
+                 wide_sim_step=(1, 1))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"simple_mpc_tpu_torch/csrc/{src}",
          "replaces": rep, "launches": launches[name],

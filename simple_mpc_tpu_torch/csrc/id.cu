@@ -49,6 +49,12 @@
 
 #include "fulldyn.cuh"
 
+// The contact force size: point feet (3) in this unit; csrc/id_wide.cu
+// compiles it again with the size read from Dims (3 or 6).
+#ifndef SMPC_ID_FS
+#define SMPC_ID_FS 3
+#endif
+
 namespace smpc {
 
 // Offsets into the task constants P (kernels.py `_id_params`).
@@ -56,18 +62,18 @@ struct IdParams {
   enum {
     kp_base, kp_posture, kp_contact, kd_base, kd_posture, kd_contact, w_base,
     w_posture, w_contact_motion, w_contact_force, min_f, max_f, dt, dt2,
-    cone  // then cone (n_cone x 3), vmax, qlo, qhi, taumax (nu each)
+    cone  // then cone (n_cone x fs), vmax, qlo, qhi, taumax (nu each)
   };
 };
 
-constexpr int kIdC = 3 * kMaxK;  // contact rows
+constexpr int kIdC = SMPC_MAX_FORCE_SIZE * kMaxK;  // contact rows
 
 // The rigid-body part of one robot.
 template <class F>
 struct IdRigid {
   F M[kMaxV * kMaxV];  // full, symmetric
   F h[kMaxV];
-  F Jc[kIdC * kMaxV];  // feet, LWA linear rows (3 nk, nv)
+  F Jc[kIdC * kMaxV];  // feet, LWA rows (fs nk, nv): linear, then angular if fs = 6
   F jdv[kIdC];         // J-dot v of those rows
   F vf[kIdC];          // J v
   F Jb[6 * kMaxV];     // base frame, LWA [lin; ang] (6, nv)
@@ -117,8 +123,8 @@ SMPC_HD void id_rigid(const Dims& D, const F* C, const F* q, const F* v, const F
   mass_bias(
       D, C, K, v, [&](int i, int j, F m) { R.M[i * nv + j] = R.M[j * nv + i] = m; }, R.h, aW);
   for (int f = 0; f < nk; ++f)
-    lwa_rows(D, K, aW, D.frame_parent[f], K.fpw[f], 3, R.Jc + 3 * f * D.nv, R.vf + 3 * f,
-             R.jdv + 3 * f);
+    lwa_rows(D, K, aW, D.frame_parent[f], K.fpw[f], SMPC_ID_FS, R.Jc + SMPC_ID_FS * f * D.nv,
+             R.vf + SMPC_ID_FS * f, R.jdv + SMPC_ID_FS * f);
   const V3<F> pb = frame_pos(D, C, K.k, nk);
   const M3<F> Rb = frame_rot(D, C, K.k, nk);
   lwa_rows(D, K, aW, D.frame_parent[nk], pb, 6, R.Jb, R.vb, R.jdvb);
@@ -163,7 +169,7 @@ id_assemble_kernel(Dims D, const F* __restrict__ C, const F* __restrict__ P,
                    F* __restrict__ ho, F* __restrict__ JcT) {
   __shared__ IdRigid<F> R;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int nq = D.nq, nv = D.nv, nu = D.nu, nk = D.nk, nc = 3 * nk, nz = nv + nc;
+  const int nq = D.nq, nv = D.nv, nu = D.nu, nk = D.nk, nc = SMPC_ID_FS * nk, nz = nv + nc;
   const size_t b = blockIdx.x;
   const int tid = threadIdx.x, nth = blockDim.x;
   const F* qb = q + b * nq;
@@ -209,12 +215,12 @@ id_assemble_kernel(Dims D, const F* __restrict__ C, const F* __restrict__ P,
     } else if (r < r_motion) {  // force regularization
       const int i = r - r_force;
       Jr[r * nz + nv + i] = F(1);
-      w = cb[i / 3] * P[IdParams::w_contact_force];
+      w = cb[i / SMPC_ID_FS] * P[IdParams::w_contact_force];
       r0 = -fb[i];
     } else {  // contact motion as a cost
       const int i = r - r_motion;
       for (int d = 0; d < nv; ++d) Jr[r * nz + d] = R.Jc[i * nv + d];
-      w = cb[i / 3] * P[IdParams::w_contact_motion];
+      w = cb[i / SMPC_ID_FS] * P[IdParams::w_contact_motion];
       r0 = R.jdv[i] + kd_c * R.vf[i];
     }
     wr[r] = w;
@@ -243,7 +249,7 @@ id_assemble_kernel(Dims D, const F* __restrict__ C, const F* __restrict__ P,
   for (int idx = tid; idx < m * nz; idx += nth) Ab[idx] = F(0);
   __syncthreads();
   const F* cone = P + IdParams::cone;
-  const F* vmax = cone + 3 * n_cone;
+  const F* vmax = cone + SMPC_ID_FS * n_cone;
   const F* qlo = vmax + nu;
   const F* qhi = qlo + nu;
   const F* taumax = qhi + nu;
@@ -257,24 +263,24 @@ id_assemble_kernel(Dims D, const F* __restrict__ C, const F* __restrict__ P,
     } else if (r < c_f) {  // contact motion equality
       const int i = r - c_eq;
       for (int d = 0; d < nv; ++d) Ar[d] = R.Jc[i * nv + d];
-      const bool act = cb[i / 3] > F(0.5);
+      const bool act = cb[i / SMPC_ID_FS] > F(0.5);
       const F rhs = -(R.jdv[i] + kd_c * R.vf[i]);
       lo = act ? rhs : -inf;
       hi = act ? rhs : inf;
     } else if (r < c_cone) {  // inactive contact force = 0
       const int i = r - c_f;
       Ar[nv + i] = F(1);
-      const bool act = cb[i / 3] > F(0.5);
+      const bool act = cb[i / SMPC_ID_FS] > F(0.5);
       lo = act ? -inf : F(0);
       hi = act ? inf : F(0);
-    } else if (r < c_fz) {  // friction pyramid rows of foot k
+    } else if (r < c_fz) {  // friction pyramid (wrench cone) rows of foot k
       const int k = (r - c_cone) / n_cone, c = (r - c_cone) % n_cone;
-      for (int j = 0; j < 3; ++j) Ar[nv + 3 * k + j] = cone[3 * c + j];
+      for (int j = 0; j < SMPC_ID_FS; ++j) Ar[nv + SMPC_ID_FS * k + j] = cone[SMPC_ID_FS * c + j];
       lo = -inf;
       hi = cb[k] > F(0.5) ? F(0) : inf;
     } else if (r < c_j) {  // normal-force bounds
       const int k = r - c_fz;
-      Ar[nv + 3 * k + 2] = F(1);
+      Ar[nv + SMPC_ID_FS * k + 2] = F(1);
       const bool act = cb[k] > F(0.5);
       lo = act ? P[IdParams::min_f] : -inf;
       hi = act ? P[IdParams::max_f] : inf;
@@ -313,9 +319,10 @@ int launch_id(const int* dims, const void* C, const void* P, const void* q, cons
               void* A, void* l, void* u, void* M, void* h, void* JcT, void* stream) {
   Dims D;
   std::memcpy(&D, dims, sizeof(Dims));
-  if (D.nk > smpc::kMaxK || D.nv > smpc::kMaxV) return (int)cudaErrorInvalidValue;
-  const int nz = D.nv + 3 * D.nk;
-  const int nr = D.nu + 6 + 6 * D.nk;  // at most: every cost row
+  if (D.nk > smpc::kMaxK || D.nv > smpc::kMaxV || SMPC_ID_FS > SMPC_MAX_FORCE_SIZE)
+    return (int)cudaErrorInvalidValue;
+  const int nz = D.nv + SMPC_ID_FS * D.nk;
+  const int nr = D.nu + 6 + 2 * SMPC_ID_FS * D.nk;  // at most: every cost row
   const size_t smem = ((size_t)nr * nz + 2 * (size_t)nr) * sizeof(F);
   id_assemble_kernel<F><<<nbatch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       D, static_cast<const F*>(C), static_cast<const F*>(P), static_cast<const F*>(q),

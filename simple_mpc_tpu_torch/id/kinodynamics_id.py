@@ -15,11 +15,15 @@ and weight masking over one static problem, as in the JAX package.
 The assembly and the QP take a leading batch of robots (`solve` runs one
 robot as a batch of 1) and run through `kernels.id_assemble` and
 `kernels.qp_admm`: their plain twins on CPU tensors, CUDA kernels
-(csrc/id.cu, csrc/qp.cu) on the card.  The twin of the assembly is
+(csrc/id.cu or, for 6D feet and wide models, csrc/id_wide.cu, and
+csrc/qp.cu) on the card.  The twin of the assembly is
 `KinodynamicsID._assemble_core`, on the SoA rigid-body functions with the
 robots in the lanes; its J-dot v is a `torch.func.jvp` along the flow
-q' = v, as the JAX package takes it.  Point feet only (force size 3): the
-6D contacts' wrench cones and `CentroidalID` are not ported.
+q' = v, as the JAX package takes it.  Point feet take 3D forces and the
+friction pyramid; quad feet (Talos's soles) 6D wrenches, their
+LOCAL_WORLD_ALIGNED [lin; ang] Jacobian rows and the 17-row wrench cone
+of `ocp/cones.py` (`IDSettings.Lfoot`, `Wfoot`).  `CentroidalID` is not
+ported.
 """
 from __future__ import annotations
 
@@ -30,8 +34,8 @@ import numpy as np
 import torch
 from torch.func import jvp
 
-from ..models.handler import POINT, RobotModelHandler
-from ..ocp.cones import friction_cone_mat
+from ..models.handler import QUAD, RobotModelHandler
+from ..ocp.cones import friction_cone_mat, wrench_cone_mat
 from ..ops import soa, soa_dyn
 from ..solver.proxddp import full_precision_matmuls
 
@@ -85,16 +89,17 @@ class KinodynamicsID:
         self.nq, self.nv = m.nq, m.nv
         self.nu = m.nv - 6
         self.nk = model_handler.n_feet
-        if any(t != POINT for t in model_handler.feet_types):
-            raise NotImplementedError("KinodynamicsID takes point feet; 6D contacts "
-                                      "are not ported")
-        self.fdim = 3
+        self.fdim = 6 if (model_handler.feet_types
+                          and model_handler.feet_types[0] == QUAD) else 3
         self.nz = self.nv + self.nk * self.fdim
         self.weight = model_handler.mass * 9.81
         self.max_f = settings.contact_weight_ratio_max * self.weight
         self.min_f = settings.contact_weight_ratio_min * self.weight
         self.feet_fids = list(model_handler.feet_frame_ids)
-        self._cone_mat = friction_cone_mat(settings.friction_coefficient)
+        self._cone_mat = (friction_cone_mat(settings.friction_coefficient)
+                          if self.fdim == 3 else
+                          wrench_cone_mat(settings.friction_coefficient,
+                                          settings.Lfoot, settings.Wfoot))
         self.n_cone = self._cone_mat.shape[0]
         self._consts = {}
 
@@ -290,7 +295,8 @@ class KinodynamicsID:
         lo.append(where(act, -_INF, 0.0))
         hi.append(where(act, _INF, 0.0))
 
-        # friction pyramid rows per foot + normal-force bounds (active)
+        # friction pyramid / wrench cone rows per foot + normal-force bounds
+        # (active)
         Acone = zeros(nk * self.n_cone)
         for k in range(nk):
             Acone[:, k * self.n_cone: (k + 1) * self.n_cone,

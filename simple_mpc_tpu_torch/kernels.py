@@ -37,6 +37,15 @@ the ADMM QP of the inverse-dynamics layer (twin `id/qp.py`), and
 K10 `sim_step` (csrc/sim.cu) replaces `simple_mpc_tpu/sim/simulator.py`
 `Simulator.step` (twin `Simulator.step_plain`); it and `id_assemble`
 include K7's device code (csrc/fulldyn.cuh).
+K11 `state_derivative` (csrc/acc.cu) replaces
+`simple_mpc_tpu/ocp/kinodynamics.py` `KinodynamicsOCP.state_derivative`
+over `ode_acc` (twin `KinodynamicsOCP._acc_soa`).
+`wide_id_assemble`, `wide_sim_step` and `wide_state_derivative`
+(csrc/id_wide.cu, sim_wide.cu, acc_wide.cu: id.cu, sim.cu and acc.cu
+compiled again over csrc/stage_wide.cuh) take what the Go2 units refuse:
+6D contacts and up to WIDE_MAX_JOINTS joints (Talos); `body_route` and
+`stage_route` decide, and `id_assemble`, `sim_step` and
+`state_derivative` hand a wide model's CUDA tensors to them.
 Each source file states what bounds the kernel on the card and what its
 design does about it; csrc/stage.cuh holds the rigid-body algebra the
 K1/K2/K5/K9 kernels share.
@@ -78,7 +87,8 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("riccati.cu", "parallel_riccati.cu", "rollout.cu", "linearize.cu", "fulldyn.cu",
-           "tick.cu", "qp.cu", "id.cu", "sim.cu", "linearize_wide.cu")
+           "tick.cu", "qp.cu", "id.cu", "sim.cu", "linearize_wide.cu", "acc.cu", "acc_wide.cu",
+           "id_wide.cu", "sim_wide.cu")
 HEADERS = ("stage.cuh", "fulldyn.cuh", "stage_wide.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -161,7 +171,11 @@ def _library() -> ctypes.CDLL:
             tick_refs=[P] * 12 + [I] * 6 + [D, D] + [P] * 8,
             qp_admm=[P] * 7 + [I] * 4 + [D] * 3 + [P] * 5,
             id_assemble=[P] * 10 + [I] * 4 + [P] * 9,
+            wide_id_assemble=[P] * 10 + [I] * 4 + [P] * 9,
             sim_step=[P] * 5 + [I] + [D] * 3 + [P] * 5,
+            wide_sim_step=[P] * 5 + [I] + [D] * 3 + [P] * 5,
+            state_derivative=[P] * 5 + [I] + [P] * 2,
+            wide_state_derivative=[P] * 5 + [I] + [P] * 2,
         )
         for name, args in signatures.items():
             for dt in ("f32", "f64"):
@@ -912,6 +926,73 @@ fd_dynamics.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K11: the kinodynamics state derivative
+# ---------------------------------------------------------------------------
+
+
+def state_derivative_plain(ocp, x, u, p):
+    """Plain PyTorch twin of K11: [v; a] from `KinodynamicsOCP._acc_soa`
+    on N lanes.  x (N,nx), u (N,nu), p stage params with leading N.
+    Returns (N, 2 nv)."""
+    P = tree_map(lambda a: a.movedim(0, -1), p)
+    a, _ = ocp._acc_soa(x[:, : ocp.nq].T, x[:, ocp.nq:].T, u.T, P)
+    return torch.cat([x[:, ocp.nq:], a.T], dim=1)
+
+
+def _state_derivative_cuda(ocp, x, u, p, wide):
+    if ocp.full_dynamics:
+        raise ValueError("state_derivative takes a kinodynamics OCP")
+    dtype, device = x.dtype, x.device
+    C, dims = _stage_consts(ocp, dtype, device, wide)
+    n = x.shape[0]
+    shapes = dict(x=(n, ocp.nq + ocp.nv), u=(n, ocp.nu), active=(n, ocp.nk))
+    t = _check(dict(x=x, u=u, active=p.contact_active), shapes, dtype, device)
+    out = torch.empty((n, 2 * ocp.nv), dtype=dtype, device=device)
+    name = f"{'wide_' if wide else ''}state_derivative"
+    fn = getattr(_library(), f"smpc_{name}_{_suffix(dtype)}")
+    with torch.cuda.device(device):
+        err = fn(ctypes.addressof(dims), C.data_ptr(), *[t[k].data_ptr() for k in shapes],
+                 n, out.data_ptr(), _stream(device))
+    _raise_on(err, name)
+    return out
+
+
+def state_derivative(ocp, x, u, p):
+    """K11: the continuous state derivative [v; a] of a KinodynamicsOCP on
+    N lanes (csrc/acc.cu).  x (N,nx), u (N,nu), p stage params with leading
+    N (the kernel reads contact_active).  Returns (N, 2 nv)."""
+    dev = x.device
+    if dev.type == "cpu":
+        return state_derivative_plain(ocp, x, u, p)
+    if dev.type == "cuda":
+        if stage_route(ocp) == "wide":
+            return wide_state_derivative(ocp, x, u, p)
+        out = _state_derivative_cuda(ocp, x, u, p, wide=False)
+        state_derivative.launches += 1
+        return out
+    raise RuntimeError(f"state_derivative: no kernel for device {dev}")
+
+
+state_derivative.launches = 0
+
+
+def wide_state_derivative(ocp, x, u, p):
+    """K11 at wide shapes (csrc/acc_wide.cu): `state_derivative`'s
+    contract for 6D contacts and up to WIDE_MAX_JOINTS joints."""
+    dev = x.device
+    if dev.type == "cpu":
+        return state_derivative_plain(ocp, x, u, p)
+    if dev.type == "cuda":
+        out = _state_derivative_cuda(ocp, x, u, p, wide=True)
+        wide_state_derivative.launches += 1
+        return out
+    raise RuntimeError(f"wide_state_derivative: no kernel for device {dev}")
+
+
+wide_state_derivative.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # K5: terminal Jacobian
 # ---------------------------------------------------------------------------
 
@@ -1123,20 +1204,36 @@ tick_refs.launches = 0
 # The closed loop's kernels: K8 (qp_admm, id_assemble) and K10 (sim_step)
 # ---------------------------------------------------------------------------
 
-QP_MAX_N = 64  # qp.cu kMaxN: variables (Go2 30; a Talos-sized ID about 50)
-QP_MAX_M = 256  # qp.cu kMaxM: constraint rows (Go2 66, 78 with motion equalities)
+QP_MAX_N = 64  # qp.cu kMaxN: variables (Go2 30, Talos 40)
+QP_MAX_M = 256  # qp.cu kMaxM: constraint rows (Go2 66, Talos 98; 78 and 110 with motion equalities)
 _body_cache: dict = {}
 
 
-def _body_consts(model, frame_ids, nk, dtype, device, kp=0.0, kd=0.0, prox=1e-9):
+def body_route(model, nk: int, fs: int = 3, what: str = "the rigid-body kernels") -> str:
+    """Which unit takes the rigid-body kernels (`id_assemble`, `sim_step`)
+    of a model with nk contacts of force size fs: "narrow" (csrc/id.cu,
+    csrc/sim.cu) for point feet and at most MAX_JOINTS joints, "wide"
+    (csrc/id_wide.cu, csrc/sim_wide.cu) for force size 3 or 6 and at most
+    WIDE_MAX_JOINTS joints.  Raises NotImplementedError beyond those."""
+    _require_body_layout(model, nk, what, max_joints=WIDE_MAX_JOINTS)
+    if fs == 3 and model.njoints <= MAX_JOINTS:
+        return "narrow"
+    if fs not in (3, 6):
+        raise NotImplementedError(f"{what} take force size 3 or 6, got {fs}")
+    return "wide"
+
+
+def _body_consts(model, frame_ids, nk, dtype, device, kp=0.0, kd=0.0, prox=1e-9, fs=3,
+                 wide=False):
     """(packed constants, Dims) of the rigid-body kernels csrc/id.cu and
-    csrc/sim.cu: the model's joint tree and inertias, the selected frames
-    `frame_ids` (the nk feet first, then any other frame), the Baumgarte
-    gains kp, kd on every contact row and the Delassus diagonal's proximal
-    term max(prox, 50 eps(dtype)), as `constrained_fwd_dynamics_soa` takes
-    it."""
+    csrc/sim.cu, or with `wide` of csrc/id_wide.cu and csrc/sim_wide.cu
+    (`smpc_wide::Dims`): the model's joint tree and inertias, the selected
+    frames `frame_ids` (the nk feet first, then any other frame), the
+    contacts' force size fs, the Baumgarte gains kp, kd on every one of
+    their fs nk rows and the Delassus diagonal's proximal term
+    max(prox, 50 eps(dtype)), as `constrained_fwd_dynamics_soa` takes it."""
     tab = _world.tables(model)
-    key = (id(model), id(tab), tuple(frame_ids), nk, kp, kd, prox, dtype, device)
+    key = (id(model), id(tab), tuple(frame_ids), nk, kp, kd, prox, fs, wide, dtype, device)
     hit = _body_cache.get(key)
     if hit is not None and hit[0] is tab:
         return hit[1], hit[2]
@@ -1150,14 +1247,15 @@ def _body_consts(model, frame_ids, nk, dtype, device, kp=0.0, kd=0.0, prox=1e-9)
         o_jR=tab.jR, o_jp=tab.jp, o_axis=axes, o_prism=prism, o_mass=tab.masses,
         o_com=tab.coms, o_Iloc=tab.I_loc, o_fR=tab.fR[sel], o_fp=tab.fp[sel],
         o_scalars=np.array([tab.total_mass, 0.0, 0.0, 0.0]),
-        o_kp=np.full(3 * nk, float(kp)), o_kd=np.full(3 * nk, float(kd)),
+        o_kp=np.full(fs * nk, float(kp)), o_kd=np.full(fs * nk, float(kd)),
         o_Icom=soa_dyn._static_body_params(model)[2],
         o_grav=np.asarray(model.gravity, np.float64),
         o_prox=np.array([max(prox, 50.0 * torch.finfo(dtype).eps)]))
-    dims = dict(nj=nj, nq=model.nq, nv=model.nv, nu=model.nv - 6, nk=nk, fs=3,
+    dims = dict(nj=nj, nq=model.nq, nv=model.nv, nu=model.nv - 6, nk=nk, fs=fs,
                 kp_on=int(kp != 0.0), parent=list(model.parents), qidx=list(model.idx_q),
                 vidx=list(model.idx_v), frame_parent=[int(tab.fparent[f]) for f in sel])
-    buf, dims_c = _pack_consts(dims, blocks, dtype, device)
+    buf, dims_c = _pack_consts(dims, blocks, dtype, device,
+                               _WIDE_DIMS_FIELDS if wide else _DIMS_FIELDS)
     _body_cache[key] = (tab, buf, dims_c)
     return buf, dims_c
 
@@ -1237,44 +1335,48 @@ def _id_params(idsolver, dtype, device):
     return buf
 
 
-def _id_cuda(idsolver, q, v, targets):
+def _id_cuda(idsolver, q, v, targets, wide):
     from .id.kinodynamics_id import KinodynamicsID
 
     if type(idsolver)._extra_tasks is not KinodynamicsID._extra_tasks:
         raise NotImplementedError("id_assemble takes the KinodynamicsID task set")
     m = idsolver.model
-    _require_body_layout(m, idsolver.nk, "id_assemble")
     dtype, device = q.dtype, q.device
-    nb, nv, nk, nz = q.shape[0], idsolver.nv, idsolver.nk, idsolver.nz
+    nb, nv, nk, fd, nz = q.shape[0], idsolver.nv, idsolver.nk, idsolver.fdim, idsolver.nz
     C, dims = _body_consts(m, idsolver.feet_fids + [idsolver.mh.base_frame_id], nk, dtype,
-                           device)
+                           device, fs=fd, wide=wide)
     P = _id_params(idsolver, dtype, device)
     rows = _id_rows(idsolver)
     shapes = dict(q=(nb, m.nq), v=(nb, nv), q_t=(nb, m.nq), v_t=(nb, nv), a_t=(nb, nv),
-                  contacts=(nb, nk), f_t=(nb, nk, 3))
+                  contacts=(nb, nk), f_t=(nb, nk, fd))
     t = _check(dict(q=q, v=v, **targets), shapes, dtype, device)
     out = {k: torch.empty(s, dtype=dtype, device=device) for k, s in (
         ("H", (nb, nz, nz)), ("g", (nb, nz)), ("A", (nb, rows, nz)), ("l", (nb, rows)),
-        ("u", (nb, rows)), ("M", (nb, nv, nv)), ("h", (nb, nv)), ("JcT", (nb, nv, 3 * nk)))}
-    fn = getattr(_library(), f"smpc_id_assemble_{_suffix(dtype)}")
+        ("u", (nb, rows)), ("M", (nb, nv, nv)), ("h", (nb, nv)), ("JcT", (nb, nv, fd * nk)))}
+    name = f"{'wide_' if wide else ''}id_assemble"
+    fn = getattr(_library(), f"smpc_{name}_{_suffix(dtype)}")
     with torch.cuda.device(device):
         err = fn(ctypes.addressof(dims), C.data_ptr(), P.data_ptr(),
                  *[t[k].data_ptr() for k in shapes], nb,
                  int(idsolver.settings.contact_motion_equality), idsolver.n_cone, rows,
                  *[out[k].data_ptr() for k in ID_OUT], _stream(device))
-    _raise_on(err, "id_assemble")
+    _raise_on(err, name)
     return tuple(out[k] for k in ID_OUT)
 
 
 def id_assemble(idsolver, q, v, targets):
     """K8's assembly: the inverse-dynamics QP of B robots (H, g, A, l, u)
     with M, h and Jc' for the torques.  q (B,nq), v (B,nv), targets
-    q_t (B,nq), v_t, a_t (B,nv), contacts (B,nk), f_t (B,nk,3)."""
+    q_t (B,nq), v_t, a_t (B,nv), contacts (B,nk), f_t (B,nk,fdim).  A
+    model that `body_route` sends to the wide unit goes to
+    `wide_id_assemble` on the card."""
     dev = q.device
     if dev.type == "cpu":
         return idsolver._assemble_core(q, v, targets)
     if dev.type == "cuda":
-        out = _id_cuda(idsolver, q, v, targets)
+        if body_route(idsolver.model, idsolver.nk, idsolver.fdim, "id_assemble") == "wide":
+            return wide_id_assemble(idsolver, q, v, targets)
+        out = _id_cuda(idsolver, q, v, targets, wide=False)
         id_assemble.launches += 1
         return out
     raise RuntimeError(f"id_assemble: no kernel for device {dev}")
@@ -1283,37 +1385,59 @@ def id_assemble(idsolver, q, v, targets):
 id_assemble.launches = 0
 
 
-def _sim_cuda(sim, q, v, tau):
+def wide_id_assemble(idsolver, q, v, targets):
+    """K8's assembly at wide shapes (csrc/id_wide.cu): `id_assemble`'s
+    contract for 6D contacts (the wrench-cone rows) and up to
+    WIDE_MAX_JOINTS joints."""
+    dev = q.device
+    if dev.type == "cpu":
+        return idsolver._assemble_core(q, v, targets)
+    if dev.type == "cuda":
+        body_route(idsolver.model, idsolver.nk, idsolver.fdim, "wide_id_assemble")
+        out = _id_cuda(idsolver, q, v, targets, wide=True)
+        wide_id_assemble.launches += 1
+        return out
+    raise RuntimeError(f"wide_id_assemble: no kernel for device {dev}")
+
+
+wide_id_assemble.launches = 0
+
+
+def _sim_cuda(sim, q, v, tau, wide):
     from .sim.simulator import SimStep
 
     s, m = sim.settings, sim.model
-    _require_body_layout(m, sim.nk, "sim_step")
     dtype, device = q.dtype, q.device
     nb, nk = q.shape[0], sim.nk
     C, dims = _body_consts(m, sim.feet_fids, nk, dtype, device, s.baumgarte_kp,
-                           s.baumgarte_kd)
+                           s.baumgarte_kd, wide=wide)
     shapes = dict(q=(nb, m.nq), v=(nb, m.nv), tau=(nb, m.nv - 6))
     t = _check(dict(q=q, v=v, tau=tau), shapes, dtype, device)
     out = SimStep(*(torch.empty(sh, dtype=dtype, device=device) for sh in (
         (nb, m.nq), (nb, m.nv), (nb, nk, 3), (nb, 2, nk))))
-    fn = getattr(_library(), f"smpc_sim_step_{_suffix(dtype)}")
+    name = f"{'wide_' if wide else ''}sim_step"
+    fn = getattr(_library(), f"smpc_{name}_{_suffix(dtype)}")
     with torch.cuda.device(device):
         err = fn(ctypes.addressof(dims), C.data_ptr(), *[t[k].data_ptr() for k in shapes],
                  nb, float(s.dt), float(s.ground_height), float(s.contact_margin),
                  *[o.data_ptr() for o in out], _stream(device))
-    _raise_on(err, "sim_step")
+    _raise_on(err, name)
     return out
 
 
 def sim_step(sim, q, v, tau):
     """K10: one step of the rigid-contact simulator for B robots.  q (B,nq),
     v (B,nv), tau (B,nu).  Returns `SimStep` q, v, the world contact forces
-    f_w (B,nk,3) and the contact masks of the two solves (B,2,nk)."""
+    f_w (B,nk,3) and the contact masks of the two solves (B,2,nk).  A model
+    with more than MAX_JOINTS joints goes to `wide_sim_step` on the card
+    (the contacts stay 3D points)."""
     dev = q.device
     if dev.type == "cpu":
         return sim.step_plain(q, v, tau)
     if dev.type == "cuda":
-        out = _sim_cuda(sim, q, v, tau)
+        if body_route(sim.model, sim.nk, 3, "sim_step") == "wide":
+            return wide_sim_step(sim, q, v, tau)
+        out = _sim_cuda(sim, q, v, tau, wide=False)
         sim_step.launches += 1
         return out
     raise RuntimeError(f"sim_step: no kernel for device {dev}")
@@ -1322,10 +1446,28 @@ def sim_step(sim, q, v, tau):
 sim_step.launches = 0
 
 
+def wide_sim_step(sim, q, v, tau):
+    """K10 at wide shapes (csrc/sim_wide.cu): `sim_step`'s contract for up
+    to WIDE_MAX_JOINTS joints."""
+    dev = q.device
+    if dev.type == "cpu":
+        return sim.step_plain(q, v, tau)
+    if dev.type == "cuda":
+        body_route(sim.model, sim.nk, 3, "wide_sim_step")
+        out = _sim_cuda(sim, q, v, tau, wide=True)
+        wide_sim_step.launches += 1
+        return out
+    raise RuntimeError(f"wide_sim_step: no kernel for device {dev}")
+
+
+wide_sim_step.launches = 0
+
+
 KERNELS = (stage_linearize, stage_eval, riccati_backward, parallel_riccati_backward,
            linear_rollout, term_linearize, tick_refs, fd_stage_linearize, fd_stage_eval,
            fd_dynamics, qp_admm, id_assemble, sim_step, wide_stage_linearize,
-           wide_stage_eval, wide_term_linearize)
+           wide_stage_eval, wide_term_linearize, state_derivative, wide_state_derivative,
+           wide_id_assemble, wide_sim_step)
 
 
 def reset_launches():

@@ -259,10 +259,13 @@ class KinodynamicsOCP(MultibodyOCPHandler):
         return r, w, geq, h, xnext
 
     def state_derivative(self, x, u, p):
-        """Continuous xdot [v; a] (MPC::getStateDerivative, mpc.cpp:346-352)."""
-        P = type(p)._make(a[..., None] for a in p)
-        a, _ = self._acc_soa(x[: self.nq, None], x[self.nq:, None], u[:, None], P)
-        return torch.cat([x[self.nq:], a[:, 0]])
+        """Continuous xdot [v; a] (MPC::getStateDerivative, mpc.cpp:346-352)
+        as one lane of `kernels.state_derivative` (K11: csrc/acc.cu, or
+        csrc/acc_wide.cu for 6D feet, on the card; `_acc_soa` on the CPU)."""
+        from .. import kernels
+
+        return kernels.state_derivative(self, x[None], u[None],
+                                        type(p)._make(a[None] for a in p))[0]
 
     # -- reference get/setters (kinodynamics.cpp:155-338) --------------------
     def get_reference_force(self, t: int, ee_name: str):

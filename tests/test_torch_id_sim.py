@@ -281,18 +281,28 @@ def test_interpolator_and_friction_match_jax():
         tf.compute_friction(t(np.zeros(3)), t(np.zeros(12)))
 
 
-def test_id_refuses_6d_contacts():
-    """The port's ID takes point feet only: a handler with a 6D (quad) foot
-    is refused at construction, before any assembly."""
+def test_id_takes_6d_contacts():
+    """A handler with quad feet (Talos's soles) gives the 6D ID of the JAX
+    package: 6D wrenches, the 17-row wrench cone of JAX `wrench_cone_mat`
+    for the settings' Lfoot and Wfoot, nv + 12 variables, 98 rows (110
+    with the motion equalities) and a finite dry-run solve carrying the
+    weight on the two soles.  Its assembly and solves are held to JAX's in
+    tests/test_torch_talos_id_sim.py."""
+    from simple_mpc_tpu.ocp.cones import wrench_cone_mat
+    from simple_mpc_tpu_torch import configs as tconfigs
+    from simple_mpc_tpu_torch import kernels
     from simple_mpc_tpu_torch.id.kinodynamics_id import IDSettings, KinodynamicsID
-    from simple_mpc_tpu_torch.models import robots
-    from simple_mpc_tpu_torch.models.handler import RobotModelHandler
 
-    mh = RobotModelHandler(robots.load_go2(), "standing", "base")
-    mh.add_point_foot("FL_foot", "base")
-    mh.add_quad_foot("FR_foot", "base", np.zeros((4, 3)))
-    with pytest.raises(NotImplementedError, match="point feet"):
-        KinodynamicsID(mh, 1e-3, IDSettings(**ID_SETTINGS), device="cpu")
+    mh = tconfigs.talos_handler()
+    settings = dict(ID_SETTINGS, Lfoot=0.1, Wfoot=0.075)
+    for eq, rows in ((False, 98), (True, 110)):
+        idq = KinodynamicsID(mh, 1e-3, IDSettings(**settings, contact_motion_equality=eq),
+                             device="cpu")
+        assert (idq.fdim, idq.nz, kernels._id_rows(idq)) == (6, mh.model.nv + 12, rows)
+        np.testing.assert_array_equal(idq._cone_mat, wrench_cone_mat(0.6, 0.1, 0.075))
+        f = idq.get_forces()
+        assert f.shape == (2, 6) and bool(torch.isfinite(f).all())
+        assert abs(float(f[:, 2].sum()) - idq.weight) < 0.05 * idq.weight
 
 
 def test_cpu_tensors_never_count_launches_and_other_devices_raise():

@@ -276,7 +276,8 @@ def test_port_does_not_import_jax():
             " simple_mpc_tpu_torch.ocp.fulldynamics, simple_mpc_tpu_torch.id.qp,"
             " simple_mpc_tpu_torch.id.kinodynamics_id, simple_mpc_tpu_torch.sim.simulator,"
             " simple_mpc_tpu_torch.utils.interpolator, simple_mpc_tpu_torch.utils.friction,"
-            " simple_mpc_tpu_torch.examples.loop, simple_mpc_tpu_torch.examples.go2_kinodynamics;"
+            " simple_mpc_tpu_torch.examples.loop, simple_mpc_tpu_torch.examples.go2_kinodynamics,"
+            " simple_mpc_tpu_torch.examples.talos_kinodynamics;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m.startswith('simple_mpc_tpu.') or m == 'simple_mpc_tpu'];"
             "assert not bad, bad")
