@@ -110,19 +110,35 @@ Phases, each printing one line; any failure raises and exits non-zero:
                1e-3, 10 inner steps a tick), 30 MPC ticks: the JAX
                package's smoke gate (finite, base z within 0.1 m of its
                start); loop_readings as phase 12.
-Phases 4-10, 12, 14-16 and 18 drive the main paths.  The kernels' launch
-counters are zeroed just before each of them (after the latency engine's and
-the closed loop's set-up, whose first solves run before the path) and read
-just after (a `<phase>_launches` line): each must have launched every kernel
-it runs (phase 7 the six of the serial tick; phase 8 the same with K6 in
-place of K3, and K3 never; phases 9-10 the full-dynamics stage kernels and
-never the kinodynamics ones; phases 12 and 18 the five solver kernels
-exactly once a tick, the three inner kernels exactly once an inner step and
-the state derivative exactly twice a tick, phase 18 the wide ones of each
-and never the Go2 ones; phases 14-16 the three wide kernels, K3 and K4, and
-never the Go2 stage kernels; no Go2 phase a wide kernel).  The kernel
+ 19. line_search_kernels — (after phase 17) the rest of K4
+               (csrc/linesearch.cu and its wide instance):
+               candidate_integrate, line_search_select and
+               state_difference against their twins on one iteration's
+               real candidates of Go2 kinodynamics, Go2 full dynamics and
+               Talos at B=128, T=100, f32 and f64 (f64 within 1e-10 and the
+               same step sizes; f32 within F32_LS_TOL of the f64 twin on the
+               same inputs, another step size than the f64 twin's only at
+               a merit tie within f32 roundoff); then the device kernels
+               one solver iteration launches at B=1 (at most 16), from a
+               profiler trace.
+ 20. tick_traces — (with --phases only) profiler readings of one tick of
+               each B=1 path, for holding two trees against each other.
+Phases 4-10, 12, 14-16 and 18 drive the main paths; every solver call
+launches state_difference once and candidate_integrate and
+line_search_select once an iteration (its wide instance on Talos).  The
+kernels' launch counters are zeroed just before each of them (after the
+latency engine's and the closed loop's set-up, whose first solves run
+before the path) and read just after (a `<phase>_launches` line): each
+must have launched every kernel it runs (phase 7 the nine of the serial
+tick; phase 8 the same with K6 in place of K3, and K3 never; phases 9-10
+the full-dynamics stage kernels and never the kinodynamics ones; phases 12
+and 18 the eight solver kernels exactly once a tick, the three inner
+kernels exactly once an inner step and the state derivative exactly twice
+a tick, phase 18 the wide ones of each and never the Go2 ones; phases
+14-16 the four wide kernels, K3 and K4's rollout, integrate and initial
+gap, and never the Go2 stage kernels; no Go2 phase a wide kernel).  The kernel
 summary's `launches` is the sum over those twelve runs; the launches of
-phases 3, 11, 13 and 17 and of phases 12's and 18's timings are not
+phases 3, 11, 13, 17 and 19 and of phases 12's and 18's timings are not
 counted.  Its `bound_ms` is the larger of the bytes each
 kernel moves (inputs read once, outputs written once, at the summary's
 shape) over 3.35 TB/s and its counted FLOPs over 67 TFLOP/s (H100 SXM,
@@ -156,15 +172,22 @@ PYRAMID_CALLS = 4  # calls (ticks) of the fd phases' 68-row runs (prim printed, 
 REPS = 20
 SLOW_REPS = 3  # the torch.func twins of K1+K2 and K5 and the f64 twin of K3
 # the kernels each path of the main path must launch, and must not
+# K4 after the rollout: once a solve before its iterations
+# (state_difference) and once an iteration (the other two)
+LS_KERNELS = ("candidate_integrate", "line_search_select", "state_difference")
 SOLVER_KERNELS = ("stage_linearize", "stage_eval", "riccati_backward", "linear_rollout",
-                  "term_linearize")
+                  "term_linearize") + LS_KERNELS
 LATENCY_KERNELS = ("stage_linearize", "stage_eval", "parallel_riccati_backward",
-                   "linear_rollout", "term_linearize", "tick_refs")
+                   "linear_rollout", "term_linearize", "tick_refs") + LS_KERNELS
 FD_SOLVER_KERNELS = ("fd_stage_linearize", "fd_stage_eval", "riccati_backward",
-                     "linear_rollout", "term_linearize")
-WIDE_KERNELS = ("wide_stage_linearize", "wide_stage_eval", "wide_term_linearize")
-TALOS_SOLVER_KERNELS = WIDE_KERNELS + ("riccati_backward", "linear_rollout")
-GO2_STAGE_KERNELS = ("stage_linearize", "stage_eval", "term_linearize")
+                     "linear_rollout", "term_linearize") + LS_KERNELS
+# the Lie integrate and the difference read nq and nv alone: one kernel
+# each serves every model; the line search's terminal cost reads the model
+WIDE_KERNELS = ("wide_stage_linearize", "wide_stage_eval", "wide_term_linearize",
+                "wide_line_search_select")
+TALOS_SOLVER_KERNELS = WIDE_KERNELS + ("riccati_backward", "linear_rollout",
+                                       "candidate_integrate", "state_difference")
+GO2_STAGE_KERNELS = ("stage_linearize", "stage_eval", "term_linearize", "line_search_select")
 PATH_KERNELS = dict(batched=SOLVER_KERNELS, fixture=SOLVER_KERNELS, mpc=SOLVER_KERNELS,
                     fused=SOLVER_KERNELS + ("tick_refs",), latency=LATENCY_KERNELS,
                     fd_batched=FD_SOLVER_KERNELS,
@@ -220,6 +243,21 @@ TALOS_CONE_B, TALOS_CONE_T = 2, 10  # the wrench-cone case of phase_talos_kernel
 # five, on an NVIDIA H100 80GB HBM3 at 700 W; JAX's own f32 pass on a CPU
 # 4.6e-3 after two, tests/test_torch_talos_fixture.py)
 TALOS_F32_ROUNDS = 8
+# f32 line-search kernels vs their twin in f64 on the same inputs (see
+# phase_line_search_kernels): ten times the f32 twin's own distance from
+# the f64 twin in that phase's recipe (ls_f32_readings with the twins on the
+# CPU, ls_case at B=128, T=100: candidate_integrate 4.25e-8, 3.97e-8 and
+# 7.26e-8, state_difference 1.11e-7, 1.01e-7 and 9.41e-8,
+# line_search_select 1.09e-7, 8.15e-8 and 1.32e-7 for Go2, full dynamics
+# and Talos), and "tie" ten times the f32 twin's largest relative merit
+# distance there (2.61e-7, 2.07e-7 and 1.79e-7): the kernel may pick another
+# step size than the f64 twin only where their merits lie that close
+F32_LS_TOL = dict(go2=dict(candidate_integrate=4.3e-7, state_difference=1.2e-6,
+                           line_search_select=1.1e-6, tie=2.7e-6),
+                  fd=dict(candidate_integrate=4.0e-7, state_difference=1.1e-6,
+                          line_search_select=8.2e-7, tie=2.1e-6),
+                  talos=dict(candidate_integrate=7.3e-7, state_difference=9.5e-7,
+                             line_search_select=1.4e-6, tie=1.8e-6))
 # f32 wide stage kernels vs their twin in f64 (see phase_talos_kernels): about
 # ten times the f32 twin's own distance from the f64 twin in that phase's
 # recipe (CPU, B=4, T=100 and the cone case: 5.4e-6, 1.9e-7 and 4.5e-5, the
@@ -353,6 +391,37 @@ def profile_kernels(fn, n):
     with open(path) as fh:
         ev = [e for e in json.load(fh)["traceEvents"] if e.get("cat") == "kernel"]
     return ev, wall
+
+
+def call_kernels(fn, warm=2):
+    """The device kernels one call of fn() launches, from a profiler trace:
+    the kernel events whose launch (a runtime or driver API event with the
+    same correlation id) lies inside a record_function window around the
+    call, made after `warm` calls under the same profiler (a trace may miss
+    kernel events, at its start most of all; it adds none)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    path = os.path.join(ROOT, "simple_mpc_tpu_torch", "_build", "trace.json")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
+        with record_function("counted_call"):
+            fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        ev = json.load(fh)["traceEvents"]
+    win = [e for e in ev if e.get("name") == "counted_call" and e.get("ph") == "X"
+           and e.get("cat") == "user_annotation"]
+    check(len(win) == 1, f"call_kernels: {len(win)} counted_call windows in the trace")
+    lo, hi = win[0]["ts"], win[0]["ts"] + win[0]["dur"]
+    launched = {e["args"]["correlation"] for e in ev
+                if e.get("cat") in ("cuda_runtime", "cuda_driver") and lo <= e["ts"] <= hi
+                and "correlation" in e.get("args", {})}
+    return sum(1 for e in ev if e.get("cat") == "kernel"
+               and e.get("args", {}).get("correlation") in launched)
 
 
 def k6_kernel_ms(ev, nT, n):
@@ -934,6 +1003,28 @@ def phase_fd_batched(device):
           pyramids_on=dict(n_in=ocp.n_in, calls=PYRAMID_CALLS, max_prim_per_call=prims68))
 
 
+def fd_host_mpc(device, force_cone):
+    """The host MPC of phase_fd_mpc (examples/go2_fulldynamics.py: T=50,
+    trot 10/30/10/30 at 0.2 m/s, f32, first solve cut to 20 iterations),
+    walking; returns (mpc, m g)."""
+    from simple_mpc_tpu_torch.configs import make_go2_fulldynamics
+    from simple_mpc_tpu_torch.mpc import MPC, MPCSettings
+
+    ocp, mh, _ = make_go2_fulldynamics(FD_MPC_T, device=device, dtype=torch.float32,
+                                       force_cone=force_cone)
+    mpc = MPC(MPCSettings(support_force=mh.mass * 9.81, TOL=1e-4, mu_init=1e-8,
+                          max_iters=1, swing_apex=0.05, T_fly=30, T_contact=10,
+                          timestep=0.01, init_max_iters=20), ocp)
+    check(not mpc.diverged, f"fd MPC ({ocp.n_in} rows): initial solve diverged")
+    feet = mh.feet_names
+    ds = {f: True for f in feet}
+    pair_a = {f: f in ("FL_foot", "RR_foot") for f in feet}
+    pair_b = {f: f in ("FR_foot", "RL_foot") for f in feet}
+    mpc.generate_cycle_horizon([ds] * 10 + [pair_a] * 30 + [ds] * 10 + [pair_b] * 30)
+    mpc.switch_to_walk(np.array([0.2, 0, 0, 0, 0, 0]))
+    return mpc, mh.mass * 9.81
+
+
 def phase_fd_mpc(device):
     """The host MPC on full dynamics (examples/go2_fulldynamics.py:20-34:
     T=50, trot 10/30/10/30 at 0.2 m/s) without the friction pyramids (a
@@ -945,23 +1036,8 @@ def phase_fd_mpc(device):
     (tests/test_fulldynamics_solver.py:102-103).  Then the same MPC with
     all 68 rows, PYRAMID_CALLS ticks: gated finite and not diverged, each
     tick's prim and stage-0 force sum printed."""
-    from simple_mpc_tpu_torch.configs import make_go2_fulldynamics
-    from simple_mpc_tpu_torch.mpc import MPC, MPCSettings
-
     def walking_mpc(force_cone):
-        ocp, mh, _ = make_go2_fulldynamics(FD_MPC_T, device=device, dtype=torch.float32,
-                                           force_cone=force_cone)
-        mpc = MPC(MPCSettings(support_force=mh.mass * 9.81, TOL=1e-4, mu_init=1e-8,
-                              max_iters=1, swing_apex=0.05, T_fly=30, T_contact=10,
-                              timestep=0.01, init_max_iters=20), ocp)
-        check(not mpc.diverged, f"fd MPC ({ocp.n_in} rows): initial solve diverged")
-        feet = mh.feet_names
-        ds = {f: True for f in feet}
-        pair_a = {f: f in ("FL_foot", "RR_foot") for f in feet}
-        pair_b = {f: f in ("FR_foot", "RL_foot") for f in feet}
-        mpc.generate_cycle_horizon([ds] * 10 + [pair_a] * 30 + [ds] * 10 + [pair_b] * 30)
-        mpc.switch_to_walk(np.array([0.2, 0, 0, 0, 0, 0]))
-        return mpc, mh.mass * 9.81
+        return fd_host_mpc(device, force_cone)
 
     def tick(mpc):
         res = mpc.iterate(mpc.xs[1])
@@ -1030,24 +1106,30 @@ def phase_fixture(device):
     phase("fixture", t0, prim_res=prim, max_abs_err_us=err_u, max_abs_err_xs=err_x)
 
 
-def phase_mpc(device):
-    """Host MPC loop on the card (examples/go2_kinodynamics.py trot)."""
+def go2_host_mpc(device):
+    """The host MPC of phase_mpc (examples/go2_kinodynamics.py trot at
+    0.2 m/s, T=100, f32, first solve cut to 20 iterations), walking."""
     from simple_mpc_tpu_torch.configs import make_go2_kinodynamics
     from simple_mpc_tpu_torch.mpc import MPC, MPCSettings
 
-    t0 = time.perf_counter()
     ocp, mh, x0 = make_go2_kinodynamics(T, device=device, dtype=torch.float32)
     mpc = MPC(MPCSettings(support_force=mh.mass * 9.81, TOL=1e-4, mu_init=1e-8,
                           max_iters=1, num_threads=1, swing_apex=0.05, T_fly=30,
                           T_contact=10, timestep=0.01, init_max_iters=20), ocp)
     check(not mpc.diverged, "MPC: initial solve diverged")
-    setup = time.perf_counter() - t0
     feet = mh.feet_names
     ds = {f: True for f in feet}
     pair_a = {f: f in ("FL_foot", "RR_foot") for f in feet}
     pair_b = {f: f in ("FR_foot", "RL_foot") for f in feet}
     mpc.generate_cycle_horizon([ds] * 10 + [pair_a] * 30 + [ds] * 10 + [pair_b] * 30)
     mpc.switch_to_walk(np.array([0.2, 0, 0, 0, 0, 0]))
+    return mpc
+
+
+def phase_mpc(device):
+    """Host MPC loop on the card (examples/go2_kinodynamics.py trot)."""
+    t0 = time.perf_counter()
+    mpc, setup = go2_host_mpc(device), time.perf_counter() - t0
     ticks, lat, prims = 30, [], []
     for _ in range(ticks):
         x = mpc.xs[1]
@@ -1498,6 +1580,235 @@ def phase_talos_id_sim_kernels(device, ptxas_log=""):
     """The Talos closed loop's kernels against their twins on the card
     (phase_id_sim_kernels with robot="talos")."""
     return phase_id_sim_kernels(device, ptxas_log, robot="talos")
+
+
+def ls_rel(a, b):
+    """max|a - b| / max|b| over the finite entries of b (rel_err), with
+    inf where a and b are not finite at the same entries or differ there."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    fin = torch.isfinite(b)
+    if not torch.equal(torch.isfinite(a), fin) or not torch.equal(a[~fin].nan_to_num(),
+                                                                 b[~fin].nan_to_num()):
+        return float("inf")
+    if not bool(fin.any()):
+        return 0.0
+    return float((a[fin] - b[fin]).abs().max() / b[fin].abs().max().clamp_min(1e-300))
+
+
+def ls_case(kind, device, dtype):
+    """One iteration's real inputs of the line search at the main path's
+    shapes (B=128, T=100): Go2 kinodynamics (standing_case), Go2 full
+    dynamics with its 68 rows (fd_case) or Talos kinodynamics (talos_case,
+    the feet lifted in turns), with mu 1e-6 (at its f32 floor in f32), eta
+    from mu and omega unset as `run` enters its first iteration; the
+    linearization, K3 and the rollout through the kernels.  Returns
+    (solver, rollout steps (xs, us, dxs, dus), select's arguments after
+    the solver)."""
+    from simple_mpc_tpu_torch import kernels
+    from simple_mpc_tpu_torch.ocp.base import tree_map
+    from simple_mpc_tpu_torch.solver.proxddp import ProxDDPSolver, SolverSettings
+
+    if kind == "go2":
+        ocp, probs, xs, us = standing_case(device, dtype, seed=3)
+        lam_in = torch.zeros((B, T, ocp.n_in), dtype=dtype, device=device)
+        lam_eq = torch.zeros((B, T, ocp.n_eq), dtype=dtype, device=device)
+    elif kind == "fd":
+        ocp, probs, xs, us, lam_in = fd_case(device, dtype, seed=5)
+        lam_eq = torch.zeros((B, T, ocp.n_eq), dtype=dtype, device=device)
+    else:
+        ocp, probs, xs, us, lam_eq, lam_in = talos_case(device, dtype, B, T, seed=9)
+    solver = ProxDDPSolver(ocp, SolverSettings(mu_init=1e-6, alphas=ALPHAS,
+                                               u_scale="auto" if kind == "talos" else None))
+    st = solver.settings
+    eps = torch.finfo(dtype).eps
+    mu = torch.full((B,), max(1e-6, eps ** 0.5), dtype=dtype, device=device)
+    lam_term = torch.zeros((B, ocp.n_term_eq), dtype=dtype, device=device)
+    sp = tree_map(torch.Tensor.contiguous, probs.stage_params)
+    tp = tree_map(torch.Tensor.contiguous, probs.term_params)
+    x0 = probs.x0.contiguous()
+    lin = solver._linearize(solver, sp, xs, us, lam_eq, lam_in, mu)
+    Vx, Vxx = kernels.term_linearize(solver, xs[:, -1], tp, lam_term, mu)
+    ks, Ks, dual = solver._backward(lin, Vx, Vxx, max(st.reg_init, 50 * eps))
+    alphas = torch.as_tensor(ALPHAS, dtype=dtype, device=device)
+    dxs, dus = kernels.linear_rollout(lin["A"], lin["B"], lin["d"], ks, Ks,
+                                      kernels.state_difference_plain(solver, xs[:, 0], x0),
+                                      alphas)
+    xs_c, us_c = kernels.candidate_integrate_plain(solver, xs, us, dxs, dus)
+    costs, g, h, gap = solver._eval(solver, sp, xs_c, us_c, lam_eq, lam_in, mu)
+    eta = torch.clamp(mu ** st.bcl_alpha, min=float(st.tol))
+    omega = torch.full((B,), -1.0, dtype=dtype, device=device)
+    return solver, (xs, us, dxs, dus), (xs_c, us_c, costs, g, h, gap, tp, x0, lam_eq, lam_in,
+                                        lam_term, mu, eta, omega, dual, alphas)
+
+
+def select_bytes(sel, out):
+    """Bytes line_search_select must move for these inputs: the candidates'
+    stage costs and gaps (the merit), their initial and terminal states,
+    the chosen candidate's states, controls, g and h, the multipliers and
+    per-scenario scalars, and every output."""
+    xs_c, us_c, costs, g, h, gap = sel[:6]
+    nb, na = xs_c.shape[:2]
+    e = xs_c.element_size()
+    cand = nbytes((costs, gap)) + 2 * nb * na * xs_c.shape[-1] * e
+    chosen = (nbytes((xs_c, us_c, g, h))) // na
+    return cand + chosen + nbytes(sel[6:]) + nbytes(out)
+
+
+def ls_f32_readings(solver, roll, sel, ci, ls, sd):
+    """f32 runs of the line-search functions ci, ls and sd (the kernels or
+    their twins) on one ls_case against the f64 twins on the same inputs
+    (as64): each function's largest distance (ls_rel over its outputs;
+    line_search_select's over the scenarios where it picked the f64 twin's
+    step size), every scenario where it picked another one with the f64
+    twin's relative merit gap between the two picks, and the f32 twin's
+    largest relative distance from the f64 twin over the finite merits of
+    every candidate ("twin_merit_rel")."""
+    from simple_mpc_tpu_torch import kernels
+
+    x1, x2 = roll[0][:, 0], sel[7]
+    roll64, sel64 = as64(roll), as64(sel)
+    got = ci(solver, *roll)
+    out = dict(
+        candidate_integrate=max(ls_rel(a, b) for a, b in zip(
+            got, kernels.candidate_integrate_plain(solver, *roll64))),
+        state_difference=ls_rel(sd(solver, x1, x2),
+                                kernels.state_difference_plain(solver, *as64((x1, x2)))))
+    got, want = ls(solver, *sel), kernels.line_search_select_plain(solver, *sel64)
+    same = got.alpha.double() == want.alpha
+    out["line_search_select"] = max(ls_rel(a[same], b[same]) for a, b in zip(got, want))
+
+    def merits(s):
+        return kernels._candidate_merits(solver, s[0], s[2], s[5], s[6], s[7], s[10],
+                                         s[11])[0]
+
+    m32, m64 = merits(sel), merits(sel64)
+    fin = torch.isfinite(m64)
+    out["twin_merit_rel"] = float(((m32.double() - m64).abs() / m64.abs())[fin].max())
+    out["other_picks"] = []
+    for b in torch.nonzero(~same).flatten().tolist():
+        k = int(torch.nonzero(sel[15] == got.alpha[b])[0])
+        w = int(torch.nonzero(sel64[15] == want.alpha[b])[0])
+        out["other_picks"].append(dict(scenario=b, kernel=k, twin64=w, twin64_merit_gap=float(
+            (m64[b, k] - m64[b, w]) / m64[b, w].abs())))
+    return out
+
+
+def phase_line_search_kernels(device):
+    """K4 after the rollout (csrc/linesearch.cu and its wide instance)
+    against its twins on the card, on the real candidates of one iteration
+    (ls_case) of Go2 kinodynamics, Go2 full dynamics (68 rows) and Talos
+    kinodynamics at B=128, T=100, nA=5, f32 and f64: candidate_integrate,
+    line_search_select and state_difference (the initial gap).  Gates: in
+    f64 every output within 1e-10 of the twin (relative to its largest
+    entry) and the identical step size in every scenario.  In f32
+    (ls_f32_readings) each kernel within F32_LS_TOL[problem] of the twin
+    in f64 on the same inputs, line_search_select on the scenarios where it
+    picked the f64 twin's step size, and another step size only where the
+    f64 twin's relative merit gap between the two picks is within
+    F32_LS_TOL's "tie"; the f32 twin's own readings printed beside, and the
+    kernels' distances from the f32 twin with every scenario where the two
+    picked differently.  Times: CUDA-
+    event medians of the kernels and twins; bounds by bytes (the rigid-body
+    arithmetic of the terminal costs and differences is not counted).
+    Then the device kernels one solver iteration launches: a
+    `BatchedSolver.run` of Go2 kinodynamics at B=1 (serial K3, the default
+    SolverSettings) at max_iters=2 less the same at max_iters=1, each the
+    most of three `call_kernels` readings, at most 16."""
+    from simple_mpc_tpu_torch import kernels
+    from simple_mpc_tpu_torch.configs import make_go2_kinodynamics
+    from simple_mpc_tpu_torch.parallel import BatchedSolver, tile_problem
+    from simple_mpc_tpu_torch.solver.proxddp import ProxDDPSolver, SolverSettings
+
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        t0 = time.perf_counter()
+        f32 = dtype == torch.float32
+        errs, abs_err, times, bounds, picks, per_kind = {}, {}, {}, {}, {}, {}
+        vs64 = {}
+        for kind in ("go2", "fd", "talos"):
+            solver, roll, sel = ls_case(kind, device, dtype)
+            ci, sd = kernels.candidate_integrate, kernels.state_difference
+            ls = kernels.wide_line_search_select if kind == "talos" else kernels.line_search_select
+            x1, x2 = roll[0][:, 0], sel[7]
+            runs = {ci.__name__: (lambda: ci(solver, *roll),
+                                  lambda: kernels.candidate_integrate_plain(solver, *roll)),
+                    ls.__name__: (lambda: ls(solver, *sel),
+                                  lambda: kernels.line_search_select_plain(solver, *sel)),
+                    sd.__name__: (lambda: sd(solver, x1, x2),
+                                  lambda: kernels.state_difference_plain(solver, x1, x2))}
+            for name, (kern, twin) in runs.items():
+                got, want = kern(), twin()
+                got = (got,) if torch.is_tensor(got) else tuple(got)
+                want = (want,) if torch.is_tensor(want) else tuple(want)
+                e = max(ls_rel(a, b) for a, b in zip(got, want))
+                if not f32:
+                    check(e <= 1e-10, f"{name} {kind} f64: rel err {e:.3e} > 1e-10")
+                moved = (select_bytes(sel, got) if name == ls.__name__
+                         else nbytes((roll, solver._su(roll[0]), got)) if name == ci.__name__
+                         else nbytes((x1, x2, got)))
+                r = dict(rel_err=e, max_abs_err=max(float(finite_abs(a, b))
+                                                    for a, b in zip(got, want) if a.numel()),
+                         ms=cuda_ms(kern, REPS), plain_ms=cuda_ms(twin, REPS),
+                         bound=roofline(0, moved))
+                per_kind[f"{kind}/{name}"] = r
+                # the summary's readings: Go2 kinodynamics for the Go2
+                # unit, Talos for the wide one; the errors the worst case
+                errs[name] = max(errs.get(name, 0.0), e)
+                abs_err[name] = max(abs_err.get(name, 0.0), r["max_abs_err"])
+                if name not in times:
+                    times[name], bounds[name] = (r["ms"], r["plain_ms"]), r["bound"]
+            # the step sizes picked; the twin's merits of every candidate
+            got, want = ls(solver, *sel), kernels.line_search_select_plain(solver, *sel)
+            differ = torch.nonzero(got.alpha != want.alpha).flatten().tolist()
+            m = kernels._candidate_merits(solver, sel[0], sel[2], sel[5], sel[6], sel[7],
+                                          sel[10], sel[11])[0]
+            check(f32 or not differ, f"{ls.__name__} f64: other step sizes in scenarios {differ}")
+            a_k = [int(torch.nonzero(sel[15] == a)[0]) for a in got.alpha[differ]]
+            a_t = [int(torch.nonzero(sel[15] == a)[0]) for a in want.alpha[differ]]
+            picks[kind] = [dict(scenario=b, kernel=k, twin=w, twin_merit_gap=float(
+                (m[b, k] - m[b, w]) / m[b, w].abs())) for b, k, w in zip(differ, a_k, a_t)]
+            picks[kind + "_nonfinite_candidates"] = int((~torch.isfinite(m)).sum())
+            if f32:
+                # the kernels and the f32 twins against the f64 twin
+                r = ls_f32_readings(solver, roll, sel, ci, ls, sd)
+                tw = ls_f32_readings(solver, roll, sel, kernels.candidate_integrate_plain,
+                                     kernels.line_search_select_plain,
+                                     kernels.state_difference_plain)
+                tol = F32_LS_TOL[kind]
+                for k in ("candidate_integrate", "state_difference", "line_search_select"):
+                    check(r[k] <= tol[k], f"{k} {kind} f32: {r[k]:.3e} > {tol[k]:.1e} "
+                          "from the f64 twin")
+                ties = [p for p in r["other_picks"] if p["twin64_merit_gap"] > tol["tie"]]
+                check(not ties, f"{ls.__name__} {kind} f32: another step size than the f64 "
+                      f"twin's beyond a merit tie of {tol['tie']:.1e}: {ties}")
+                vs64[kind] = dict(kernel=r, twin=tw, tol=tol)
+        name = str(dtype).replace("torch.", "")
+        out[name] = dict(errs=errs, abs_err=abs_err, times=times, bounds=bounds)
+        phase(f"line_search_kernels_{name}", t0, B=B, T=T, n_alpha=len(ALPHAS),
+              rel_err=errs, max_abs_err=abs_err, per_problem=per_kind,
+              bound_ms=bounds if f32 else None, other_picks=picks,
+              kernel_and_twin_vs_f64_twin=vs64 or None)
+
+    # the device kernels of one solver iteration at B=1
+    t0 = time.perf_counter()
+    ocp, _, x0 = make_go2_kinodynamics(T, device=device, dtype=torch.float32)
+    probs = tile_problem(ocp.problem, 1)
+    xs = ocp._tensor(x0)[None, None].expand(1, T + 1, -1).clone()
+    us = ocp.get_reference_control(0)[None, None].expand(1, T, -1).clone()
+    per, counts = {}, {}
+    for n in (1, 2):
+        bs = BatchedSolver(ProxDDPSolver(ocp, SolverSettings(max_iters=n)))
+        bs.run(probs, xs, us)
+        counts[n] = [call_kernels(lambda: bs.run(probs, xs, us)) for _ in range(3)]
+        per[n] = max(counts[n])
+        check(per[n] > 0, f"no kernel of a max_iters={n} solve found in its traces")
+    per_iter = per[2] - per[1]
+    check(per_iter <= 16, f"one solver iteration launches {per_iter} device kernels > 16")
+    phase("line_search_launches", t0, B=1, T=T, kernels_max_iters_1=per[1],
+          kernels_max_iters_2=per[2], kernels_per_iteration=per_iter,
+          traces_max_iters_1=counts[1], traces_max_iters_2=counts[2])
+    out["kernels_per_iteration"] = per_iter
+    return out
 
 
 def bound_rel(a, b):
@@ -2004,6 +2315,63 @@ def phase_talos_batched(device):
           ms_per_call=1e3 * wall / calls, max_prim_per_call=[float(p) for p in prims], **s)
 
 
+def talos_host_mpc(device):
+    """The host MPC of phase_talos_mpc (examples/talos_kinodynamics.py's
+    biped gait and MPC settings, T=100, f32, first solve cut to 20
+    iterations), walking at 0.1 m/s."""
+    from simple_mpc_tpu_torch.configs import make_talos_kinodynamics
+    from simple_mpc_tpu_torch.mpc import MPC, MPCSettings
+
+    ocp, mh, _ = make_talos_kinodynamics(T, device=device, dtype=torch.float32)
+    mpc = MPC(MPCSettings(support_force=mh.mass * 9.81, TOL=1e-4, mu_init=1e-8,
+                          max_iters=1, swing_apex=0.1, T_fly=80, T_contact=20,
+                          timestep=0.01, init_max_iters=20), ocp)
+    check(not mpc.diverged, "talos MPC: initial solve diverged")
+    l, r = mh.feet_names
+    mpc.generate_cycle_horizon([{l: True, r: True}] * 20 + [{l: True, r: False}] * 80
+                               + [{l: True, r: True}] * 20 + [{l: False, r: True}] * 80)
+    mpc.switch_to_walk(np.array([0.1, 0, 0, 0, 0, 0]))
+    return mpc
+
+
+def phase_tick_traces(device):
+    """Profiler readings (trace_calls: device kernels, device-busy and wall
+    ms a call, idle share) of one tick of each B=1 path in f32, after two
+    warm-up ticks: the fused tick (`step`, phase_fused), the latency tick
+    (`step_donated`, phase_latency), the Go2, full-dynamics and Talos host
+    MPC ticks (`iterate`, phases mpc, fd_mpc without the pyramids and
+    talos_mpc) and one tick of each closed loop (the examples' `run` for one
+    MPC tick from the reference state: the iteration, the tick's references
+    and 10 inner steps).  It uses nothing this tree added to the port, so a
+    copy of this script runs it in an older tree too, for holding two trees
+    against each other in one call."""
+    from simple_mpc_tpu_torch.examples import go2_kinodynamics, talos_kinodynamics
+
+    t0 = time.perf_counter()
+    fused, c1 = fused_engine(device)
+    lat, c2 = fused_engine(device, parallel=True)
+    go2, fd, talos = go2_host_mpc(device), fd_host_mpc(device, False)[0], talos_host_mpc(device)
+    loop_go2, loop_talos = closed_loop_setup(device), talos_closed_loop_setup(device)
+    calls = dict(
+        fused_step=lambda: fused.step(c1, c1.xs[1]),
+        latency_step_donated=lambda: lat.step_donated(c2, c2.xs[1]),
+        go2_mpc_tick=lambda: go2.iterate(go2.xs[1]),
+        fd_mpc_tick=lambda: fd.iterate(fd.xs[1]),
+        talos_mpc_tick=lambda: talos.iterate(talos.xs[1]),
+        go2_closed_loop_tick=lambda: go2_kinodynamics.run(*loop_go2, n_steps=1, log_every=0),
+        talos_closed_loop_tick=lambda: talos_kinodynamics.run(*loop_talos, n_steps=1,
+                                                              log_every=0))
+    traces = {}
+    for name, fn in calls.items():
+        for _ in range(2):
+            fn()
+        tr = trace_calls(fn, n=5)
+        traces[name] = {k: tr[k] for k in ("kernels_per_call", "device_busy_ms", "wall_ms",
+                                           "idle_share")}
+    phase("tick_traces", t0, dtype="float32", traces=traces)
+    return traces
+
+
 def phase_talos_mpc(device):
     """The host MPC on Talos kinodynamics T=100 (the biped gait and
     MPCSettings of examples/talos_kinodynamics.py: 20 double / 80 left / 20
@@ -2012,20 +2380,9 @@ def phase_talos_mpc(device):
     `init_max_iters` cut to 20), f32: 30 ticks fed their own planned next
     state, then 5 more under the profiler.  Gates: finite plans, no
     divergence."""
-    from simple_mpc_tpu_torch.configs import make_talos_kinodynamics
-    from simple_mpc_tpu_torch.mpc import MPC, MPCSettings
-
     t0 = time.perf_counter()
-    ocp, mh, _ = make_talos_kinodynamics(T, device=device, dtype=torch.float32)
-    mpc = MPC(MPCSettings(support_force=mh.mass * 9.81, TOL=1e-4, mu_init=1e-8,
-                          max_iters=1, swing_apex=0.1, T_fly=80, T_contact=20,
-                          timestep=0.01, init_max_iters=20), ocp)
-    check(not mpc.diverged, "talos MPC: initial solve diverged")
-    setup = time.perf_counter() - t0
-    l, r = mh.feet_names
-    mpc.generate_cycle_horizon([{l: True, r: True}] * 20 + [{l: True, r: False}] * 80
-                               + [{l: True, r: True}] * 20 + [{l: False, r: True}] * 80)
-    mpc.switch_to_walk(np.array([0.1, 0, 0, 0, 0, 0]))
+    mpc, setup = talos_host_mpc(device), time.perf_counter() - t0
+    l = mpc.ocp_handler.model_handler.feet_names[0]
     ticks, lat, prims = 30, [], []
     for _ in range(ticks):
         x = mpc.xs[1]
@@ -2083,7 +2440,8 @@ def drive_main_path(device):
 
 
 PHASES = ("kernels", "fd_kernels", "id_sim_kernels", "fixture", "talos_kernels",
-          "talos_fixture", "talos_id_sim_kernels", "talos_closed_loop")
+          "talos_fixture", "talos_id_sim_kernels", "talos_closed_loop", "line_search_kernels",
+          "tick_traces")
 
 
 def main():
@@ -2125,7 +2483,8 @@ def main():
                     talos_fixture=phase_talos_fixture,
                     talos_id_sim_kernels=lambda d: phase_talos_id_sim_kernels(d, info["log"]),
                     talos_closed_loop=lambda d: phase_talos_closed_loop(
-                        d, *talos_closed_loop_setup(d)))
+                        d, *talos_closed_loop_setup(d)),
+                    line_search_kernels=phase_line_search_kernels, tick_traces=phase_tick_traces)
         for name in phases:
             runs[name](device)
         print(smi, flush=True)
@@ -2139,6 +2498,7 @@ def main():
     idres = phase_id_sim_kernels(device, info["log"])
     talres = phase_talos_kernels(device, info["log"])
     talidres = phase_talos_id_sim_kernels(device, info["log"])
+    lsres = phase_line_search_kernels(device)
     launches = drive_main_path(device)
 
     replaces = dict(
@@ -2163,11 +2523,19 @@ def main():
         wide_state_derivative=("acc_wide.cu", "simple_mpc_tpu/ocp/kinodynamics.py:531"),
         wide_id_assemble=("id_wide.cu", "simple_mpc_tpu/id/kinodynamics_id.py:131"),
         wide_sim_step=("sim_wide.cu", "simple_mpc_tpu/sim/simulator.py:60"),
+        candidate_integrate=("linesearch.cu", "simple_mpc_tpu/solver/proxddp.py:458"),
+        line_search_select=("linesearch.cu", "simple_mpc_tpu/solver/proxddp.py:529"),
+        state_difference=("linesearch.cu", "simple_mpc_tpu/solver/proxddp.py:527"),
+        wide_line_search_select=("linesearch_wide.cu", "simple_mpc_tpu/solver/proxddp.py:529"),
     )
+    # line_search_select also replaces the terminal AL cost and merit
+    # (:207-217) and prim and the BCL update (:546-600)
+    also = {k: ["simple_mpc_tpu/solver/proxddp.py:207", "simple_mpc_tpu/solver/proxddp.py:546"]
+            for k in ("line_search_select", "wide_line_search_select")}
     # each kernel's readings from the phase that checked it (phase 3's
     # K3 and K4 are Go2's, qp_admm Go2's; the Talos phases' are printed
     # there); the closed loops' kernels at B=1
-    checked = (kres["float32"], fdres["float32"], talres["float32"])
+    checked = (kres["float32"], fdres["float32"], talres["float32"], lsres["float32"])
     loops = (idres["float32"], talidres["float32"])
     f32 = {k: {n: next(c[n][k] for c in checked if k in c["errs"])
                for n in ("abs_err", "times", "bounds")}
@@ -2186,7 +2554,7 @@ def main():
          "plain_ms": f32[name]["times"][1], "bound_ms": f32[name]["bounds"][0],
          "bound_by": f32[name]["bounds"][1], "library_ms": None,
          "B": shape.get(name, (B, T))[0], "T": shape.get(name, (B, T))[1],
-         "dtype": "float32"}
+         "dtype": "float32", **({"also_replaces": also[name]} if name in also else {})}
         for name, (src, rep) in replaces.items()]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

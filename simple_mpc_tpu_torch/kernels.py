@@ -19,7 +19,14 @@ K6 `parallel_riccati_backward` (csrc/parallel_riccati.cu) replaces
 associative-scan backward pass of `SolverSettings(parallel=True)`; its twin
 is `solver/parallel_riccati.py`.
 K4 `linear_rollout` (csrc/rollout.cu) replaces `ProxDDPSolver._candidate`'s
-rollout scan.
+rollout scan; the rest of K4 is csrc/linesearch.cu: `candidate_integrate`
+the Lie integrate of `_candidate`, `line_search_select` the terminal AL
+cost, the merit, the argmin, the pick and the BCL update of `_run_impl`'s
+iteration (`_term_al_cost`, `_merit_from`, `try_alpha`, prim and the
+schedule), and `state_difference` the initial gap before the first
+iteration; `wide_line_search_select` (csrc/linesearch_wide.cu) takes the
+OCPs that `stage_route` sends to the wide stage kernels (the other two read
+nq and nv alone and serve every model).
 K5 `term_linearize` (csrc/linearize.cu) replaces
 `ProxDDPSolver._linearize_term`.
 The wide stage kernels `wide_stage_linearize`, `wide_stage_eval` and
@@ -62,6 +69,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -88,10 +96,14 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("riccati.cu", "parallel_riccati.cu", "rollout.cu", "linearize.cu", "fulldyn.cu",
            "tick.cu", "qp.cu", "id.cu", "sim.cu", "linearize_wide.cu", "acc.cu", "acc_wide.cu",
-           "id_wide.cu", "sim_wide.cu")
+           "id_wide.cu", "sim_wide.cu", "linesearch.cu", "linesearch_wide.cu")
 HEADERS = ("stage.cuh", "fulldyn.cuh", "stage_wide.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# units built without FMA contraction, so that they round as the plain
+# torch ops they replace did on the card: the line search picks the f32
+# iterate, and the Talos f32 fixture re-solve follows every rounding
+NO_FMA = ("linesearch.cu", "linesearch_wide.cu")
 
 _lib = None
 
@@ -115,7 +127,7 @@ def build() -> dict:
     h = hashlib.sha256()
     for s in srcs + [CSRC / s for s in HEADERS]:
         h.update(s.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + NO_FMA).encode())
     tag = h.hexdigest()[:16]
     out = BUILD_DIR / f"libsmpc_kernels_{tag}.so"
     if out.exists():
@@ -127,8 +139,9 @@ def build() -> dict:
     for s in srcs:
         obj = BUILD_DIR / f"{s.stem}_{tag}.{os.getpid()}.o"
         objs.append(obj)
+        fmad = ("-fmad=false",) if s.name in NO_FMA else ()
         procs.append(subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(s)],
+            [nvcc, *NVCC_FLAGS, *fmad, "-c", "-o", str(obj), str(s)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs, failed = [], []
     for s, p in zip(srcs, procs):
@@ -176,6 +189,10 @@ def _library() -> ctypes.CDLL:
             wide_sim_step=[P] * 5 + [I] + [D] * 3 + [P] * 5,
             state_derivative=[P] * 5 + [I] + [P] * 2,
             wide_state_derivative=[P] * 5 + [I] + [P] * 2,
+            candidate_integrate=[I] * 3 + [P] * 5 + [I] * 3 + [P] * 3,
+            state_difference=[I] * 2 + [P] * 2 + [I] + [P] * 2,
+            line_search_select=[P] * 4 + [I] * 3 + [P] * 2,
+            wide_line_search_select=[P] * 4 + [I] * 3 + [P] * 2,
         )
         for name, args in signatures.items():
             for dt in ("f32", "f64"):
@@ -1078,6 +1095,311 @@ wide_term_linearize.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K4 after the rollout: the candidates' Lie integrate, the line search and
+# the BCL update
+# ---------------------------------------------------------------------------
+
+LS_MAX_ALPHAS = 8  # linesearch.cu kMaxAlpha: one warp a step size
+LS_MAX_TERM_EQ = 3  # linesearch.cu kMaxTermEq
+
+
+class LineSearch(NamedTuple):
+    """What one ProxDDP iteration keeps of its line search, per scenario."""
+
+    xs: torch.Tensor  # (B, T+1, nx) the chosen candidate
+    us: torch.Tensor  # (B, T, nu)
+    alpha: torch.Tensor  # (B,) its step size
+    merit: torch.Tensor  # (B,) its merit (+inf where every candidate was NaN)
+    prim: torch.Tensor  # (B,) its primal residual
+    lam_eq: torch.Tensor  # (B, T, n_eq) multipliers after the BCL update
+    lam_in: torch.Tensor  # (B, T, n_in)
+    lam_term: torch.Tensor  # (B, n_term_eq)
+    mu: torch.Tensor  # (B,) the BCL schedule after the update
+    eta: torch.Tensor  # (B,)
+    omega: torch.Tensor  # (B,)
+    dx0: torch.Tensor  # (B, ndx) difference(xs[:, 0], x0), the next initial gap
+
+
+def _ls_route(ocp) -> str:
+    """The unit of `line_search_select` for `ocp`: "wide"
+    (csrc/linesearch_wide.cu) for a kinodynamics OCP that `stage_route`
+    sends to the wide stage kernels, else "narrow" (csrc/linesearch.cu), as
+    `term_linearize` decides."""
+    if ocp.full_dynamics:
+        _require_stage_layout(ocp)
+        return "narrow"
+    return stage_route(ocp)
+
+
+def candidate_integrate_plain(solver, xs, us, dxs, dus):
+    """Plain PyTorch twin of K4's Lie integrate: xs (B,T+1,nx), us (B,T,nu)
+    moved by the rollout's dxs (B,nA,T+1,ndx) and dus (B,nA,T,nu) (in
+    u_hat units under the solver's u_scale, chained back here).  Returns
+    xs_c (B,nA,T+1,nx), us_c (B,nA,T,nu)."""
+    xs_c = solver.space.integrate(xs[:, None].expand(dxs.shape[:3] + xs.shape[-1:]), dxs)
+    su = solver._su(us)
+    if su is not None:  # dus is in u_hat units; chain back
+        dus = dus * su
+    return xs_c, us[:, None] + dus
+
+
+def _integrate_cuda(solver, xs, us, dxs, dus):
+    ocp = solver.ocp
+    dtype, device = xs.dtype, xs.device
+    nb, na, T1, ndx = dxs.shape
+    T, nx, nu = T1 - 1, solver.space.nx, ocp.nu
+    shapes = dict(xs=(nb, T1, nx), us=(nb, T, nu), dxs=(nb, na, T1, ndx), dus=(nb, na, T, nu))
+    # the Lie integrate of a free-flyer root and 1-dof joints, at any width
+    _require_body_layout(ocp.model, 0, "candidate_integrate", ocp.model.njoints)
+    t = _check(dict(xs=xs, us=us, dxs=dxs, dus=dus), shapes, dtype, device)
+    su = solver._su(xs)
+    xs_c = torch.empty((nb, na, T1, nx), dtype=dtype, device=device)
+    us_c = torch.empty((nb, na, T, nu), dtype=dtype, device=device)
+    fn = getattr(_library(), f"smpc_candidate_integrate_{_suffix(dtype)}")
+    with torch.cuda.device(device):
+        err = fn(ocp.nq, ocp.nv, nu, *[t[k].data_ptr() for k in shapes],
+                 None if su is None else su.data_ptr(), nb, na, T, xs_c.data_ptr(),
+                 us_c.data_ptr(), _stream(device))
+    _raise_on(err, "candidate_integrate")
+    return xs_c, us_c
+
+
+def candidate_integrate(solver, xs, us, dxs, dus):
+    """K4's Lie integrate of the rollout's steps: `candidate_integrate_plain`'s
+    contract (csrc/linesearch.cu), for every model: it reads nq and nv
+    alone."""
+    dev = xs.device
+    if dev.type == "cpu":
+        return candidate_integrate_plain(solver, xs, us, dxs, dus)
+    if dev.type == "cuda":
+        out = _integrate_cuda(solver, xs, us, dxs, dus)
+        candidate_integrate.launches += 1
+        return out
+    raise RuntimeError(f"candidate_integrate: no kernel for device {dev}")
+
+
+candidate_integrate.launches = 0
+
+
+def _difference_cuda(solver, x1, x2):
+    ocp = solver.ocp
+    dtype, device = x1.dtype, x1.device
+    n, nx = x1.shape[0], solver.space.nx
+    _require_body_layout(ocp.model, 0, "state_difference", ocp.model.njoints)
+    t = _check(dict(x1=x1, x2=x2), dict(x1=(n, nx), x2=(n, nx)), dtype, device)
+    out = torch.empty((n, solver.space.ndx), dtype=dtype, device=device)
+    fn = getattr(_library(), f"smpc_state_difference_{_suffix(dtype)}")
+    with torch.cuda.device(device):
+        err = fn(ocp.nq, ocp.nv, t["x1"].data_ptr(), t["x2"].data_ptr(), n, out.data_ptr(),
+                 _stream(device))
+    _raise_on(err, "state_difference")
+    return out
+
+
+def state_difference_plain(solver, x1, x2):
+    """Plain twin of `state_difference`: the state space's difference."""
+    return solver.space.difference(x1, x2)
+
+
+def state_difference(solver, x1, x2):
+    """difference(x1, x2) of the solver's state space on N lanes: x1, x2
+    (N,nx) -> (N,ndx) (csrc/linesearch.cu, every model).  The solver's
+    initial gap before its first iteration."""
+    dev = x1.device
+    if dev.type == "cpu":
+        return state_difference_plain(solver, x1, x2)
+    if dev.type == "cuda":
+        out = _difference_cuda(solver, x1, x2)
+        state_difference.launches += 1
+        return out
+    raise RuntimeError(f"state_difference: no kernel for device {dev}")
+
+
+state_difference.launches = 0
+
+
+def _term_al_cost(ocp, x, p, lam_term, mu):
+    """The terminal AL cost 0.5 sum w r^2 + 0.5/mu |g + mu lam|^2 per lane."""
+    r, w = ocp.term_residuals(x, p)
+    g = ocp.term_eq_constraints(x, p)
+    rg = g + mu[:, None] * lam_term
+    return (0.5 * torch.sum(w * r * r, dim=-1)
+            + 0.5 / mu * torch.sum(rg * rg, dim=-1))
+
+
+def _merit_from(costs, gaps, x0_gap, term_cost, mu):
+    """The AL merit: stage costs, terminal cost, gap and x0-gap penalties."""
+    gap_pen = 0.5 / mu * torch.sum(gaps * gaps, dim=(1, 2))
+    return (torch.sum(costs, dim=1) + term_cost + gap_pen
+            + 0.5 / mu * torch.sum(x0_gap * x0_gap, dim=-1))
+
+
+def _candidate_merits(solver, xs_c, costs, gap, tp, x0, lam_term, mu):
+    """The twin's merit of every candidate, NaN -> +inf (B, nA), and their
+    x0 gaps (B*nA, ndx)."""
+    nb, na = xs_c.shape[:2]
+    xs_f = xs_c.reshape((nb * na,) + xs_c.shape[2:])
+    mu_c = _repeat(mu, na)
+    term = _term_al_cost(solver.ocp, xs_f[:, -1], tree_map(lambda a: _repeat(a, na), tp),
+                         _repeat(lam_term, na), mu_c)
+    x0_gap = solver.space.difference(xs_f[:, 0], _repeat(x0, na))
+    m = _merit_from(costs, gap, x0_gap, term, mu_c).reshape(nb, na)
+    # NaN-poisoned candidates lose to every finite merit
+    return torch.where(torch.isnan(m), math.inf, m), x0_gap
+
+
+def line_search_select_plain(solver, xs_c, us_c, costs, g, h, gap, tp, x0, lam_eq, lam_in,
+                             lam_term, mu, eta, omega, dual_res, alphas) -> LineSearch:
+    """Plain PyTorch twin of the line search and the BCL update: the merit
+    of every candidate (its stage costs, g, h and gaps from K1, its
+    terminal AL cost and x0 gap here), NaN -> +inf, the argmin per
+    scenario, the pick, prim, the BCL schedule of the solver's settings and
+    the gated multiplier updates (JAX proxddp.py 527-600).  xs_c
+    (B,nA,T+1,nx), us_c (B,nA,T,nu); costs (B*nA,T), g, h, gap
+    (B*nA,T,...); tp terminal params and x0 (B,nx) per scenario; lam_eq,
+    lam_in, lam_term, mu, eta, omega and dual_res (B,...); alphas (nA,)."""
+    ocp, st = solver.ocp, solver.settings
+    nb, na = xs_c.shape[:2]
+    device = xs_c.device
+    tol = float(st.tol)
+    mu_floor = math.sqrt(torch.finfo(xs_c.dtype).eps)
+    m, x0_gap = _candidate_merits(solver, xs_c, costs, gap, tp, x0, lam_term, mu)
+    best = torch.argmin(m, dim=1)
+    rows = torch.arange(nb, device=device)
+
+    def pick(a):
+        return a.reshape((nb, na) + a.shape[1:])[rows, best]
+
+    xs, us = xs_c[rows, best], us_c[rows, best]
+    g_all, h_all, gaps = pick(g), pick(h), pick(gap)
+    g_term = ocp.term_eq_constraints(xs[:, -1], tp)
+    prim = torch.amax(torch.abs(gaps), dim=(1, 2))
+    if ocp.n_eq:
+        prim = torch.maximum(prim, torch.amax(torch.abs(g_all), dim=(1, 2)))
+    if ocp.n_in:
+        prim = torch.maximum(prim, torch.amax(torch.clamp(h_all, min=0.0), dim=(1, 2)))
+    if ocp.n_term_eq:
+        prim = torch.maximum(prim, torch.amax(torch.abs(g_term), dim=1))
+
+    # BCL outer loop (LANCELOT schedule), per scenario
+    if st.bcl:
+        omega = torch.where(omega < 0, torch.clamp(
+            dual_res * st.bcl_omega_init, min=tol), omega)
+        dual_ok = dual_res <= omega
+        ok = dual_ok & (prim <= eta)
+        fail = dual_ok & (prim > eta)
+        mu_n = torch.where(fail, torch.clamp(mu * st.bcl_mu_factor, min=mu_floor), mu)
+        eta_n = torch.where(
+            ok, torch.clamp(eta * st.bcl_eta_shrink, min=tol),
+            torch.where(fail, torch.clamp(mu_n ** st.bcl_alpha, min=tol), eta))
+        omega_n = torch.where(
+            ok, torch.clamp(omega * st.bcl_omega_shrink, min=tol),
+            torch.where(fail, omega / st.bcl_mu_factor, omega))
+    else:
+        ok = torch.ones(nb, dtype=torch.bool, device=device)
+        mu_n, eta_n, omega_n = mu, eta, omega
+    okc = ok[:, None, None]
+    lam_eq = torch.where(okc, lam_eq + g_all / mu[:, None, None], lam_eq)
+    # projection keeps the inequality multipliers in the dual cone
+    lam_in = torch.where(okc, torch.clamp(lam_in + h_all / mu[:, None, None], min=0.0), lam_in)
+    lam_term = torch.where(ok[:, None], lam_term + g_term / mu[:, None], lam_term)
+    return LineSearch(xs=xs, us=us, alpha=alphas[best], merit=m[rows, best], prim=prim,
+                      lam_eq=lam_eq, lam_in=lam_in, lam_term=lam_term, mu=mu_n, eta=eta_n,
+                      omega=omega_n, dx0=pick(x0_gap))
+
+
+def _bcl_consts(solver, dtype):
+    """linesearch.cu `Bcl`: the schedule's constants as host doubles."""
+    st = solver.settings
+    vals = (st.tol, math.sqrt(torch.finfo(dtype).eps), st.bcl_alpha, st.bcl_mu_factor,
+            st.bcl_eta_shrink, st.bcl_omega_init, st.bcl_omega_shrink, float(st.bcl))
+    return (ctypes.c_double * len(vals))(*map(float, vals))
+
+
+def _select_cuda(solver, xs_c, us_c, costs, g, h, gap, tp, x0, lam_eq, lam_in, lam_term, mu,
+                 eta, omega, dual_res, alphas, wide):
+    ocp = solver.ocp
+    dtype, device = xs_c.dtype, xs_c.device
+    nb, na, T1, nx = xs_c.shape
+    T, nu, ndx = T1 - 1, ocp.nu, solver.space.ndx
+    n_eq, n_in, n_te = ocp.n_eq, ocp.n_in, ocp.n_term_eq
+    if na > LS_MAX_ALPHAS or n_te > LS_MAX_TERM_EQ:
+        raise NotImplementedError(
+            f"line_search_select takes at most {LS_MAX_ALPHAS} step sizes and "
+            f"{LS_MAX_TERM_EQ} terminal equalities, got {na} and {n_te}")
+    C, dims = _stage_consts(ocp, dtype, device, wide)
+    n = nb * na
+    shapes = dict(xs_c=(nb, na, T1, nx), us_c=(nb, na, T, nu), costs=(n, T),
+                  g=(n, T, n_eq), h=(n, T, n_in), gap=(n, T, ndx), x_ref=(nb, nx),
+                  dcm_ref=(nb, 3), x0=(nb, nx), lam_eq=(nb, T, n_eq), lam_in=(nb, T, n_in),
+                  lam_term=(nb, n_te), mu=(nb,), eta=(nb,), omega=(nb,), dual=(nb,),
+                  alphas=(na,))
+    t = _check(dict(xs_c=xs_c, us_c=us_c, costs=costs, g=g, h=h, gap=gap, x_ref=tp.x_ref,
+                    dcm_ref=tp.dcm_ref, x0=x0, lam_eq=lam_eq, lam_in=lam_in,
+                    lam_term=lam_term, mu=mu, eta=eta, omega=omega, dual=dual_res,
+                    alphas=alphas), shapes, dtype, device)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    out = LineSearch(xs=empty(nb, T1, nx), us=empty(nb, T, nu), alpha=empty(nb),
+                     merit=empty(nb), prim=empty(nb), lam_eq=empty(nb, T, n_eq),
+                     lam_in=empty(nb, T, n_in), lam_term=empty(nb, n_te), mu=empty(nb),
+                     eta=empty(nb), omega=empty(nb), dx0=empty(nb, ndx))
+    ins = (ctypes.c_void_p * len(shapes))(*[t[k].data_ptr() for k in shapes])
+    outs = (ctypes.c_void_p * len(out))(*[o.data_ptr() for o in out])
+    name = f"{'wide_' if wide else ''}line_search_select"
+    fn = getattr(_library(), f"smpc_{name}_{_suffix(dtype)}")
+    with torch.cuda.device(device):
+        err = fn(ctypes.addressof(dims), C.data_ptr(), _bcl_consts(solver, dtype), ins, nb,
+                 na, T, outs, _stream(device))
+    _raise_on(err, name)
+    return out
+
+
+def line_search_select(solver, xs_c, us_c, costs, g, h, gap, tp, x0, lam_eq, lam_in,
+                       lam_term, mu, eta, omega, dual_res, alphas) -> LineSearch:
+    """K4's line search and the BCL update: `line_search_select_plain`'s
+    contract (csrc/linesearch.cu), new tensors throughout.  At most
+    LS_MAX_ALPHAS step sizes on the card.  An OCP that `stage_route` sends
+    to the wide stage kernels goes to `wide_line_search_select`."""
+    args = (solver, xs_c, us_c, costs, g, h, gap, tp, x0, lam_eq, lam_in, lam_term, mu,
+            eta, omega, dual_res, alphas)
+    dev = xs_c.device
+    if dev.type == "cpu":
+        return line_search_select_plain(*args)
+    if dev.type == "cuda":
+        if _ls_route(solver.ocp) == "wide":
+            return wide_line_search_select(*args)
+        out = _select_cuda(*args, wide=False)
+        line_search_select.launches += 1
+        return out
+    raise RuntimeError(f"line_search_select: no kernel for device {dev}")
+
+
+line_search_select.launches = 0
+
+
+def wide_line_search_select(solver, xs_c, us_c, costs, g, h, gap, tp, x0, lam_eq, lam_in,
+                            lam_term, mu, eta, omega, dual_res, alphas) -> LineSearch:
+    """K4's line search and the BCL update at wide shapes
+    (csrc/linesearch_wide.cu): `line_search_select`'s contract."""
+    args = (solver, xs_c, us_c, costs, g, h, gap, tp, x0, lam_eq, lam_in, lam_term, mu,
+            eta, omega, dual_res, alphas)
+    dev = xs_c.device
+    if dev.type == "cpu":
+        return line_search_select_plain(*args)
+    if dev.type == "cuda":
+        out = _select_cuda(*args, wide=True)
+        wide_line_search_select.launches += 1
+        return out
+    raise RuntimeError(f"wide_line_search_select: no kernel for device {dev}")
+
+
+wide_line_search_select.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # K9: the fused tick's bookkeeping
 # ---------------------------------------------------------------------------
 
@@ -1467,7 +1789,8 @@ KERNELS = (stage_linearize, stage_eval, riccati_backward, parallel_riccati_backw
            linear_rollout, term_linearize, tick_refs, fd_stage_linearize, fd_stage_eval,
            fd_dynamics, qp_admm, id_assemble, sim_step, wide_stage_linearize,
            wide_stage_eval, wide_term_linearize, state_derivative, wide_state_derivative,
-           wide_id_assemble, wide_sim_step)
+           wide_id_assemble, wide_sim_step, candidate_integrate, state_difference,
+           line_search_select, wide_line_search_select)
 
 
 def reset_launches():

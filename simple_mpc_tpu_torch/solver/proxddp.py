@@ -16,10 +16,13 @@ One iteration:
   * K3 `kernels.riccati_backward`: the serial Riccati pass, or with
     `SolverSettings(parallel=True)` K6 `kernels.parallel_riccati_backward`,
     the associative-scan pass of O(log T) depth (the B=1 latency path);
-  * K4 `kernels.linear_rollout` for every step size, then the Lie integrate,
-    K1 `kernels.stage_eval` (`fd_stage_eval`) on every candidate, the AL
-    merit and an argmin per scenario;
-  * the BCL multiplier / penalty schedule per scenario.
+  * K4 `kernels.linear_rollout` for every step size, then
+    `kernels.candidate_integrate` (the Lie integrate), K1
+    `kernels.stage_eval` (`fd_stage_eval`) on every candidate, and
+    `kernels.line_search_select`: the terminal AL cost, the AL merit and an
+    argmin per scenario, the pick, prim and the BCL multiplier / penalty
+    schedule per scenario, with the chosen candidate's initial gap for the
+    next iteration (`kernels.state_difference` makes the first one).
 Each kernel runs its plain PyTorch twin on CPU tensors.  On the card an
 iteration makes no host synchronization: every constant it needs is made
 once per solver and device.
@@ -39,7 +42,6 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..kernels import _repeat
 from ..ocp.base import tree_map
 
 
@@ -148,18 +150,6 @@ class ProxDDPSolver:
                            act / mu], dim=0)
         return r_all, w_all, g, h, xnext
 
-    def _term_al_cost(self, x, p, lam_term, mu):
-        r, w = self.ocp.term_residuals(x, p)
-        g = self.ocp.term_eq_constraints(x, p)
-        rg = g + mu[:, None] * lam_term
-        return (0.5 * torch.sum(w * r * r, dim=-1)
-                + 0.5 / mu * torch.sum(rg * rg, dim=-1))
-
-    def _merit_from(self, costs, gaps, x0_gap, term_cost, mu):
-        gap_pen = 0.5 / mu * torch.sum(gaps * gaps, dim=(1, 2))
-        return (torch.sum(costs, dim=1) + term_cost + gap_pen
-                + 0.5 / mu * torch.sum(x0_gap * x0_gap, dim=-1))
-
     # ------------------------------------------------------------------
     # Backward pass (K3 or K6) and candidates (K4)
     # ------------------------------------------------------------------
@@ -173,16 +163,11 @@ class ProxDDPSolver:
         return backward(lin, Vx_T, Vxx_T, reg, dual_scale=None if su is None else 1.0 / su)
 
     def _candidates(self, xs, us, lin, ks, Ks, dx0, alphas):
-        """Linear rollout (aligator RolloutType::LINEAR) for every alpha:
-        xs (B, nA, T+1, nx), us (B, nA, T, nu)."""
+        """Linear rollout (aligator RolloutType::LINEAR) for every alpha and
+        the Lie integrate: xs (B, nA, T+1, nx), us (B, nA, T, nu)."""
         dxs, dus = kernels.linear_rollout(lin["A"], lin["B"], lin["d"], ks, Ks,
                                           dx0, alphas)
-        xs_new = self.space.integrate(xs[:, None].expand(dxs.shape[:3] + xs.shape[-1:]),
-                                      dxs)
-        su = self._su(us)
-        if su is not None:  # dus is in u_hat units; chain back
-            dus = dus * su
-        return xs_new, us[:, None] + dus
+        return kernels.candidate_integrate(self, xs, us, dxs, dus)
 
     # ------------------------------------------------------------------
     # Main loop
@@ -226,80 +211,33 @@ class ProxDDPSolver:
         reg = max(float(st.reg_init), 50.0 * eps)
         n_iters = st.max_iters if max_iters is None else max_iters
         alphas = self._const("alphas", st.alphas, xs)
-        na = alphas.shape[0]
         tol = float(st.tol)
 
         # the kernels read the parameters once, in (B, T, ...) layout
         sp = tree_map(torch.Tensor.contiguous, problems.stage_params)
         tp = tree_map(torch.Tensor.contiguous, problems.term_params)
-        tp_c = tree_map(lambda a: _repeat(a, na), problems.term_params)
-        x0_c = _repeat(problems.x0, na)
-        rows = torch.arange(nb, device=device)
+        x0 = problems.x0.contiguous()
 
         eta = torch.clamp(mu ** st.bcl_alpha, min=tol)
         omega = full(-1.0)  # set from the first dual residual
         prim = dual_res = merit = ks = Ks = alpha = None
+        # force_initial_condition; later iterations take the chosen
+        # candidate's initial gap from the line search
+        dx0 = kernels.state_difference(self, xs[:, 0], x0)
         for _ in range(n_iters):
             lin = self._linearize(self, sp, xs, us, lam_eq, lam_in, mu)
             Vx_T, Vxx_T = kernels.term_linearize(self, xs[:, -1], tp, lam_term, mu)
             ks, Ks, dual_res = self._backward(lin, Vx_T, Vxx_T, reg)
-            dx0 = self.space.difference(xs[:, 0], problems.x0)  # force_initial_condition
-
             xs_c, us_c = self._candidates(xs, us, lin, ks, Ks, dx0, alphas)
-            xs_f = xs_c.reshape((nb * na,) + xs_c.shape[2:])
-            mu_c = _repeat(mu, na)
             costs, g_c, h_c, gap_c = self._eval(self, sp, xs_c, us_c, lam_eq, lam_in, mu)
-            term = self._term_al_cost(xs_f[:, -1], tp_c, _repeat(lam_term, na), mu_c)
-            x0_gap = self.space.difference(xs_f[:, 0], x0_c)
-            m = self._merit_from(costs, gap_c, x0_gap, term, mu_c).reshape(nb, na)
-            # NaN-poisoned candidates lose to every finite merit
-            m = torch.where(torch.isnan(m), math.inf, m)
-            best = torch.argmin(m, dim=1)
-            merit = m[rows, best]
-            alpha = alphas[best]
-
-            def pick(a):
-                return a.reshape((nb, na) + a.shape[1:])[rows, best]
-
-            xs, us = xs_c[rows, best], us_c[rows, best]
-            g_all, h_all, gaps = pick(g_c), pick(h_c), pick(gap_c)
-
-            g_term = ocp.term_eq_constraints(xs[:, -1], problems.term_params)
-            prim = torch.amax(torch.abs(gaps), dim=(1, 2))
-            if ocp.n_eq:
-                prim = torch.maximum(prim, torch.amax(torch.abs(g_all), dim=(1, 2)))
-            if ocp.n_in:
-                prim = torch.maximum(prim, torch.amax(torch.clamp(h_all, min=0.0),
-                                                      dim=(1, 2)))
-            if ocp.n_term_eq:
-                prim = torch.maximum(prim, torch.amax(torch.abs(g_term), dim=1))
-
-            # BCL outer loop (LANCELOT schedule), per scenario
-            if st.bcl:
-                omega = torch.where(omega < 0, torch.clamp(
-                    dual_res * st.bcl_omega_init, min=tol), omega)
-                dual_ok = dual_res <= omega
-                ok = dual_ok & (prim <= eta)
-                fail = dual_ok & (prim > eta)
-                mu_n = torch.where(
-                    fail, torch.clamp(mu * st.bcl_mu_factor, min=mu_floor), mu)
-                eta_n = torch.where(
-                    ok, torch.clamp(eta * st.bcl_eta_shrink, min=tol),
-                    torch.where(fail, torch.clamp(mu_n ** st.bcl_alpha, min=tol), eta))
-                omega_n = torch.where(
-                    ok, torch.clamp(omega * st.bcl_omega_shrink, min=tol),
-                    torch.where(fail, omega / st.bcl_mu_factor, omega))
-            else:
-                ok = torch.ones(nb, dtype=torch.bool, device=device)
-                mu_n, eta_n, omega_n = mu, eta, omega
-            okc = ok[:, None, None]
-            lam_eq = torch.where(okc, lam_eq + g_all / mu[:, None, None], lam_eq)
-            # projection keeps the inequality multipliers in the dual cone
-            lam_in = torch.where(
-                okc, torch.clamp(lam_in + h_all / mu[:, None, None], min=0.0), lam_in)
-            lam_term = torch.where(ok[:, None], lam_term + g_term / mu[:, None],
-                                   lam_term)
-            mu, eta, omega = mu_n, eta_n, omega_n
+            # the merit, argmin, pick, prim and BCL update (LANCELOT
+            # schedule) per scenario
+            ls = kernels.line_search_select(self, xs_c, us_c, costs, g_c, h_c, gap_c, tp, x0,
+                                            lam_eq, lam_in, lam_term, mu, eta, omega,
+                                            dual_res, alphas)
+            xs, us, alpha, merit, prim = ls.xs, ls.us, ls.alpha, ls.merit, ls.prim
+            lam_eq, lam_in, lam_term = ls.lam_eq, ls.lam_in, ls.lam_term
+            mu, eta, omega, dx0 = ls.mu, ls.eta, ls.omega, ls.dx0
 
         bad = ~(torch.isfinite(xs).all(dim=(1, 2)) & torch.isfinite(us).all(dim=(1, 2))
                 & torch.isfinite(merit))
