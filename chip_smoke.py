@@ -122,24 +122,42 @@ Phases, each printing one line; any failure raises and exits non-zero:
                one solver iteration launches at B=1 (at most 16), from a
                profiler trace.
  20. tick_traces — (with --phases only) profiler readings of one tick of
-               each B=1 path, for holding two trees against each other.
-Phases 4-10, 12, 14-16 and 18 drive the main paths; every solver call
+               each B=1 path, for holding two trees against each other; the
+               Talos and full-dynamics ticks' device kernels gated at their
+               Go2 counterpart's plus TICK_KERNEL_SLACK.
+ 21. talos_tick_kernels — (after phase 19) K9 at Talos widths
+               (wide_tick_refs, csrc/tick_wide.cu) against its twin on
+               B=128 carries of a Talos walking stream, f32 and f64.
+ 22. k6_wide_kernels — K6 at the new latency ticks' widths (Talos nx=56,
+               nu=34; full dynamics 36, 12, with and without the friction
+               pyramids) against its twin on the card's linearizations, f64
+               gated, f32 printed; shared memory a block, combine times.
+ 23. talos_fused, talos_latency — the fused tick on Talos kinodynamics
+               T=100 (configs.make_talos_fused: B=128 step_batched, B=1
+               step) and its parallel=True engine (phase 8's readings and
+               20-tick rollout gate), f32.
+ 24. fd_fused, fd_latency — the same on Go2 full dynamics T=50 (B=1
+               step; configs.make_go2_fd_fused, pyramids cut as in 10),
+               gated at feasibility_gate against the same ticks in f64.
+Phases 4-10, 12, 14-16, 18 and 23-24 drive the main paths; every solver call
 launches state_difference once and candidate_integrate and
 line_search_select once an iteration (its wide instance on Talos).  The
 kernels' launch counters are zeroed just before each of them (after the
 latency engine's and the closed loop's set-up, whose first solves run
 before the path) and read just after (a `<phase>_launches` line): each
 must have launched every kernel it runs (phase 7 the nine of the serial
-tick; phase 8 the same with K6 in place of K3, and K3 never; phases 9-10
+tick; phase 8 the same with K6 in place of K3, and K3 never; phases 23-24
+the same on their models, Talos with the wide kernels and wide_tick_refs,
+never tick_refs; phases 9-10
 the full-dynamics stage kernels and never the kinodynamics ones; phases 12
 and 18 the eight solver kernels exactly once a tick, the three inner
 kernels exactly once an inner step and the state derivative exactly twice
 a tick, phase 18 the wide ones of each and never the Go2 ones; phases
 14-16 the four wide kernels, K3 and K4's rollout, integrate and initial
 gap, and never the Go2 stage kernels; no Go2 phase a wide kernel).  The kernel
-summary's `launches` is the sum over those twelve runs; the launches of
-phases 3, 11, 13, 17 and 19 and of phases 12's and 18's timings are not
-counted.  Its `bound_ms` is the larger of the bytes each
+summary's `launches` is the sum over those sixteen runs; the launches of
+phases 3, 11, 13, 17, 19, 21 and 22 and of phases 12's and 18's timings are
+not counted.  Its `bound_ms` is the larger of the bytes each
 kernel moves (inputs read once, outputs written once, at the summary's
 shape) over 3.35 TB/s and its counted FLOPs over 67 TFLOP/s (H100 SXM,
 FP32 outside the tensor cores); FLOPs of the rigid-body arithmetic of K1,
@@ -203,6 +221,16 @@ TALOS_LOOP_TICKS = 30  # tests/test_examples_smoke.py:36-40 runs 25
 INNER_KERNELS = ("id_assemble", "qp_admm", "sim_step")
 TALOS_INNER_KERNELS = ("wide_id_assemble", "qp_admm", "wide_sim_step")
 WIDE_LOOP_KERNELS = ("wide_id_assemble", "wide_sim_step", "wide_state_derivative")
+# the fused and latency ticks on Talos (wide K9, K1+K2, K1, K5, select) and
+# on Go2 full dynamics (Go2's K9 and the full-dynamics stage kernels)
+TALOS_TICK_KERNELS = WIDE_KERNELS + ("linear_rollout", "candidate_integrate",
+                                     "state_difference", "wide_tick_refs")
+FD_TICK_KERNELS = ("fd_stage_linearize", "fd_stage_eval", "linear_rollout", "term_linearize",
+                   "tick_refs") + LS_KERNELS
+PATH_KERNELS.update(talos_fused=TALOS_TICK_KERNELS + ("riccati_backward",),
+                    talos_latency=TALOS_TICK_KERNELS + ("parallel_riccati_backward",),
+                    fd_fused=FD_TICK_KERNELS + ("riccati_backward",),
+                    fd_latency=FD_TICK_KERNELS + ("parallel_riccati_backward",))
 PATH_KERNELS["closed_loop"] = SOLVER_KERNELS + INNER_KERNELS + ("state_derivative",)
 PATH_KERNELS["talos_closed_loop"] = (TALOS_SOLVER_KERNELS + TALOS_INNER_KERNELS
                                      + ("wide_state_derivative",))
@@ -221,8 +249,8 @@ PATH_EXACT = dict(
                               CLOSED_LOOP_TICKS),
     talos_closed_loop=loop_launches(TALOS_SOLVER_KERNELS, TALOS_INNER_KERNELS,
                                     "wide_state_derivative", TALOS_LOOP_TICKS))
-_LOOP_ABSENT = ("parallel_riccati_backward", "tick_refs", "fd_stage_linearize", "fd_stage_eval",
-                "fd_dynamics")
+_LOOP_ABSENT = ("parallel_riccati_backward", "tick_refs", "wide_tick_refs", "fd_stage_linearize",
+                "fd_stage_eval", "fd_dynamics")
 PATH_ABSENT = dict(latency=("riccati_backward",),
                    fd_batched=("stage_linearize", "stage_eval"),
                    fd_mpc=("stage_linearize", "stage_eval"),
@@ -231,10 +259,15 @@ PATH_ABSENT = dict(latency=("riccati_backward",),
                    talos_mpc=GO2_STAGE_KERNELS,
                    talos_closed_loop=GO2_STAGE_KERNELS + _LOOP_ABSENT
                    + ("id_assemble", "sim_step", "state_derivative"))
+PATH_ABSENT.update(talos_fused=GO2_STAGE_KERNELS + ("tick_refs", "parallel_riccati_backward"),
+                   talos_latency=GO2_STAGE_KERNELS + ("tick_refs", "riccati_backward"),
+                   fd_fused=("stage_linearize", "stage_eval", "parallel_riccati_backward"),
+                   fd_latency=("stage_linearize", "stage_eval", "riccati_backward"))
 # no Go2 path launches a wide kernel
 for _path in ("batched", "fixture", "mpc", "fused", "latency", "fd_batched", "fd_mpc",
-              "closed_loop"):
-    PATH_ABSENT[_path] = PATH_ABSENT.get(_path, ()) + WIDE_KERNELS + WIDE_LOOP_KERNELS
+              "closed_loop", "fd_fused", "fd_latency"):
+    PATH_ABSENT[_path] = (PATH_ABSENT.get(_path, ()) + WIDE_KERNELS + WIDE_LOOP_KERNELS
+                          + ("wide_tick_refs",))
 FD_MPC_T = 50  # examples/go2_fulldynamics.py's horizon
 TALOS_CONE_B, TALOS_CONE_T = 2, 10  # the wrench-cone case of phase_talos_kernels
 # most multiplier rounds of the Talos f32 fixture re-solve: two
@@ -685,14 +718,15 @@ def phase_kernels(device):
     return out
 
 
-def fd_case(device, dtype, seed):
-    """Go2 full-dynamics T=100 standing problem (all 68 inequality rows)
-    batched B times, with a perturbed warm start (states and torques) and
-    positive inequality multipliers, made from numpy with a fixed seed."""
+def fd_case(device, dtype, seed, force_cone=True):
+    """Go2 full-dynamics T=100 standing problem (all 68 inequality rows;
+    48 without `force_cone`, the friction pyramids) batched B times, with a
+    perturbed warm start (states and torques) and positive inequality
+    multipliers, made from numpy with a fixed seed."""
     from simple_mpc_tpu_torch.configs import make_go2_fulldynamics
     from simple_mpc_tpu_torch.parallel import tile_problem
 
-    ocp, mh, x0 = make_go2_fulldynamics(T, device=device, dtype=dtype)
+    ocp, mh, x0 = make_go2_fulldynamics(T, device=device, dtype=dtype, force_cone=force_cone)
     rng = np.random.default_rng(seed)
     xs = np.repeat(x0[None, None], B, 0).repeat(T + 1, 1)
     xs = xs + 0.01 * rng.normal(size=xs.shape)
@@ -1150,39 +1184,82 @@ def phase_mpc(device):
           land=mpc.get_foot_land_cycle("FL_foot"))
 
 
-def phase_fused(device):
-    """The fused tick: B=128 self-fed step_batched ticks, one tick in
-    sync-debug "error" mode, then B=1 `step` latency."""
-    t0 = time.perf_counter()
-    fused, carry = fused_engine(device)
-    setup = time.perf_counter() - t0
-    cb = fused.tile_carry(carry, B)
-    for _ in range(2):  # warm-up: first calls allocate and load the library
-        cb, res = fused.step_batched(cb, cb.xs[:, 1])
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        cb, res = fused.step_batched(cb, cb.xs[:, 1])
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    ticks = 20
-    prim = torch.zeros((), dtype=res.prim_res.dtype, device=device)
-    bad = torch.zeros((), dtype=torch.bool, device=device)
-    t1 = time.perf_counter()
-    for _ in range(ticks):
-        cb, res = fused.step_batched(cb, cb.xs[:, 1])
-        prim = torch.maximum(prim, res.prim_res.max())
-        bad = bad | res.diverged.any() | ~torch.isfinite(res.Ks).all()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t1
-    check(not bool(bad), "fused B=128: a scenario diverged or produced a non-finite plan")
-    check(bool(torch.isfinite(cb.xs).all() and torch.isfinite(cb.us).all()),
-          "fused B=128: non-finite carry")
-    max_prim = float(prim)
-    check(max_prim < 5e-3, f"fused B=128 lost feasibility: max prim {max_prim:.3e}")
+def feasibility_gate(prims, reference=None):
+    """(max, median) limits of a stream of prim_res: the JAX bench's 5e-3
+    and 5e-4 (`bench.py:346`, `:460`), or, where the same stream solved in
+    f64 on the card (`reference`, its prims) misses them, 10 % above that
+    stream's own reading: one iteration a tick does not reach the bench's
+    gate there in any precision, and the f32 tick must not lose more."""
+    lim = np.array([5e-3, 5e-4])
+    if reference is None:
+        return lim
+    ref = np.array([max(reference), float(np.median(reference))])
+    return np.maximum(lim, 1.1 * ref)
 
-    lat = []
+
+FUSED_TICKS = 20  # ticks of each timed loop and of the rollout gate (phases 7-8, 23-24)
+
+
+def reference_prims(engine, device):
+    """The f64 streams the feasibility gates of another model's engine are
+    held to: prim_res of `engine(device, dtype=torch.float64)` from its
+    pristine carry, (the B=1 loop of phase_fused: `step` fed its own xs[1],
+    2 + FUSED_TICKS ticks of which the first two are warm-up;
+    `self_rollout` over 2 FUSED_TICKS ticks, past the gait's first swing
+    entering the horizon: tick 11 of the full-dynamics trot, tick 21 of the
+    Talos gait).  Made before a path's counters are zeroed: its launches
+    are a comparison's, not the path's."""
+    fused, carry = engine(device, dtype=torch.float64)
+    rollout = fused.self_rollout(carry, 2 * FUSED_TICKS)[1][2].cpu().numpy().tolist()
+    prims = []
+    for _ in range(2 + FUSED_TICKS):
+        carry, res = fused.step(carry, carry.xs[1])
+        prims.append(float(res.prim_res))
+    return dict(step=prims[2:], rollout=rollout)
+
+
+def phase_fused(device, name="fused", engine=None, batched=True, reference=None):
+    """The fused tick: B=128 self-fed step_batched ticks, one tick in
+    sync-debug "error" mode (with `batched`), then B=1 `step` latency.
+    `engine(device)` gives (fused, carry): the bench's Go2 engine unless
+    another is given, with its f64 `reference` streams (reference_prims);
+    `name` heads the phase line.  Without `batched` the B=1 ticks carry the
+    feasibility gate (feasibility_gate's max, against the same ticks in
+    f64)."""
+    t0 = time.perf_counter()
+    fused, carry = (engine or fused_engine)(device)
+    setup = time.perf_counter() - t0
+    ticks, line = FUSED_TICKS, {}
+    if batched:
+        cb = fused.tile_carry(carry, B)
+        for _ in range(2):  # warm-up: first calls allocate and load the library
+            cb, res = fused.step_batched(cb, cb.xs[:, 1])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            cb, res = fused.step_batched(cb, cb.xs[:, 1])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        prim = torch.zeros((), dtype=res.prim_res.dtype, device=device)
+        bad = torch.zeros((), dtype=torch.bool, device=device)
+        t1 = time.perf_counter()
+        for _ in range(ticks):
+            cb, res = fused.step_batched(cb, cb.xs[:, 1])
+            prim = torch.maximum(prim, res.prim_res.max())
+            bad = bad | res.diverged.any() | ~torch.isfinite(res.Ks).all()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        check(not bool(bad), f"{name} B={B}: a scenario diverged or produced a non-finite plan")
+        check(bool(torch.isfinite(cb.xs).all() and torch.isfinite(cb.us).all()),
+              f"{name} B={B}: non-finite carry")
+        max_prim = float(prim)
+        check(max_prim < 5e-3, f"{name} B={B} lost feasibility: max prim {max_prim:.3e}")
+        line = dict(B=B, ticks=ticks, ticks_per_s=B * ticks / wall,
+                    ms_per_batched_tick=1e3 * wall / ticks, max_prim=max_prim,
+                    sync_debug_tick="ok")
+
+    lat, prims = [], []
     c1 = carry
     for _ in range(2):
         c1, r1 = fused.step(c1, c1.xs[1])
@@ -1194,12 +1271,25 @@ def phase_fused(device):
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t2)
         check(not bool(r1.diverged) and bool(torch.isfinite(r1.us).all()),
-              "fused B=1: non-finite plan")
+              f"{name} B=1: non-finite plan")
+        prims.append(float(r1.prim_res))
+    if not batched:
+        # the B=1 ticks carry the feasibility gate of the B=128 ones
+        ref = reference["step"]
+        gate = float(feasibility_gate(prims, ref)[0])
+        check(max(prims) < gate, f"{name} B=1 lost feasibility: max prim {max(prims):.3e} "
+              f">= {gate:.3e} (f64 {max(ref):.3e})")
+        line = dict(max_prim=max(prims), prim_per_tick=prims, f64_prim_per_tick=ref,
+                    max_prim_gate=gate)
+    if reference is not None:
+        # printed, not gated: a self-fed rollout from the pristine carry
+        # past the gait's first swing entering the horizon, in f32 and f64
+        line["long_rollout_prim_per_tick"] = (
+            fused.self_rollout(carry, 2 * ticks)[1][2].cpu().numpy().tolist())
+        line["f64_long_rollout_prim_per_tick"] = reference["rollout"]
     lat_ms = 1e3 * np.asarray(lat)
-    phase("fused", t0, T=T, B=B, setup_s=setup, ticks=ticks,
-          ticks_per_s=B * ticks / wall, ms_per_batched_tick=1e3 * wall / ticks,
-          max_prim=max_prim, sync_debug_tick="ok",
-          step_p50_ms=float(np.percentile(lat_ms, 50)),
+    phase(name, t0, T=fused.T, nx=fused.solver.space.ndx, nu=fused.ocp.nu, setup_s=setup,
+          **line, step_p50_ms=float(np.percentile(lat_ms, 50)),
           step_p99_ms=float(np.percentile(lat_ms, 99)), step_prim=float(r1.prim_res),
           step_trace=trace)
 
@@ -1213,13 +1303,16 @@ def latency_setup(device):
     return fused, carry, time.perf_counter() - t0
 
 
-def phase_latency(device, fused, carry0, setup_s):
+def phase_latency(device, fused, carry0, setup_s, name="latency", reference=None):
     """The B=1 latency path (bench.py:357-464 at full precision):
-    pipelined `step_donated`, eager `step`, and the self-fed rollout gate."""
+    pipelined `step_donated`, eager `step`, and the self-fed rollout gate;
+    `name` heads the phase line and its messages.  With `reference` (the
+    engine's f64 streams, reference_prims) the rollout's gate is
+    feasibility_gate's against the same rollout in f64."""
     from simple_mpc_tpu_torch.ocp.base import tree_map
 
     t0 = time.perf_counter()
-    reps, k, ticks = 10, 20, 20
+    reps, k, ticks = 10, 20, FUSED_TICKS
     bad = torch.zeros((), dtype=torch.bool, device=device)
     carry = tree_map(torch.clone, carry0)  # the rollout below starts from carry0
     for _ in range(2):  # warm-up
@@ -1233,7 +1326,7 @@ def phase_latency(device, fused, carry0, setup_s):
             bad = bad | res.diverged | ~torch.isfinite(res.us).all()
         torch.cuda.synchronize()
         pipe.append(1e3 * (time.perf_counter() - t1) / k)
-    check(not bool(bad), "latency: step_donated diverged or planned non-finite controls")
+    check(not bool(bad), f"{name}: step_donated diverged or planned non-finite controls")
 
     c1, lat = tree_map(torch.clone, carry0), []
     for i in range(2 + ticks):
@@ -1244,22 +1337,319 @@ def phase_latency(device, fused, carry0, setup_s):
         if i >= 2:
             lat.append(1e3 * (time.perf_counter() - t2))
         check(not bool(r1.diverged) and bool(torch.isfinite(r1.us).all()),
-              "latency: eager step diverged or planned non-finite controls")
+              f"{name}: eager step diverged or planned non-finite controls")
 
     trace = trace_calls(lambda: fused.step_donated(carry, carry.xs[1]))
     _, (us0, xs1, prims) = fused.self_rollout(carry0, ticks)
     p = prims.double().cpu().numpy()
     check(bool(torch.isfinite(us0).all() and torch.isfinite(xs1).all()),
-          "latency: non-finite self-fed rollout")
+          f"{name}: non-finite self-fed rollout")
     max_prim, med_prim = float(p.max()), float(np.median(p))
-    check(max_prim < 5e-3 and med_prim < 5e-4,
-          f"latency path lost feasibility: max prim {max_prim:.3e}, median {med_prim:.3e}")
-    phase("latency", t0, T=T, B=1, setup_s=setup_s, reps=reps, ticks_per_rep=k,
+    ref = None if reference is None else reference["rollout"][:ticks]
+    gate = feasibility_gate(p, ref)
+    check(max_prim < gate[0] and med_prim < gate[1],
+          f"{name} path lost feasibility: max prim {max_prim:.3e}, median {med_prim:.3e} "
+          f"(gates {gate[0]:.3e}, {gate[1]:.3e})")
+    extra = {}
+    if ref is not None:
+        # printed, not gated: the rollout continued past the gait's first
+        # swing entering the horizon, in f32 and in f64
+        extra = dict(rollout_prim_per_tick=p.tolist(), f64_rollout_prim_per_tick=ref,
+                     rollout_gates=gate.tolist(),
+                     long_rollout_prim_per_tick=fused.self_rollout(carry0, 2 * ticks)[1][2]
+                     .cpu().numpy().tolist(),
+                     f64_long_rollout_prim_per_tick=reference["rollout"])
+    phase(name, t0, T=fused.T, B=1, setup_s=setup_s, **extra, reps=reps, ticks_per_rep=k,
           donated_p50_ms=float(np.median(pipe)), donated_p99_ms=float(max(pipe)),
           step_p50_ms=float(np.percentile(lat, 50)),
           step_p99_ms=float(np.percentile(lat, 99)),
           rollout_ticks=ticks, rollout_max_prim=max_prim, rollout_median_prim=med_prim,
           donated_trace=trace)
+
+
+FUSED_INIT_ITERS = 20  # the first solve of the Talos and full-dynamics engines (100 cut to 20)
+
+
+def talos_fused_engine(device, parallel=False, dtype=torch.float32):
+    """Talos kinodynamics T=100 on the fused tick (`configs.make_talos_fused`:
+    the port's examples/talos_kinodynamics.py weights, biped gait 20/80/20/80
+    at 0.1 m/s, T_fly 80, T_contact 20, apex 0.1 m, mu_init 1e-8; the first
+    solve cut to FUSED_INIT_ITERS iterations, as phase_talos_mpc's);
+    serial Riccati, or K6 with `parallel`.  Returns (fused, carry)."""
+    from simple_mpc_tpu_torch.configs import make_talos_fused
+
+    return make_talos_fused(T, device=device, dtype=dtype, parallel=parallel,
+                            init_max_iters=FUSED_INIT_ITERS)
+
+
+def fd_fused_engine(device, parallel=False, dtype=torch.float32):
+    """Go2 full dynamics T=50 on the fused tick (`configs.make_go2_fd_fused`:
+    examples/go2_fulldynamics.py's MPC settings and trot at 0.2 m/s, the
+    friction pyramids cut as in phase_fd_mpc, the first solve cut to
+    FUSED_INIT_ITERS iterations); serial Riccati, or K6 with `parallel`.
+    Returns (fused, carry)."""
+    from simple_mpc_tpu_torch.configs import make_go2_fd_fused
+
+    return make_go2_fd_fused(FD_MPC_T, device=device, dtype=dtype, parallel=parallel,
+                             init_max_iters=FUSED_INIT_ITERS)
+
+
+def phase_talos_fused(device, reference=None):
+    """The fused tick on Talos kinodynamics T=100 (talos_fused_engine, f32):
+    phase_fused's B=128 step_batched ticks (ticks/s, max prim < 5e-3, one
+    tick without a host sync) and B=1 `step` p50/p99.  Its latency engine
+    is phase_latency's `talos_latency` (talos_latency_setup)."""
+    phase_fused(device, "talos_fused", talos_fused_engine, reference=reference
+                or reference_prims(talos_fused_engine, device))
+
+
+def phase_fd_fused(device, reference=None):
+    """The fused tick on Go2 full dynamics T=50 (fd_fused_engine, f32):
+    B=1 `step` p50/p99, every tick finite and not diverged, max prim
+    within feasibility_gate against the same ticks in f64 (the trot's first
+    swing entering the horizon lifts prim to ~3.9e-2 in f32 and f64 alike,
+    as on the host MPC).  Its latency engine is phase_latency's
+    `fd_latency` (fd_latency_setup)."""
+    phase_fused(device, "fd_fused", fd_fused_engine, batched=False, reference=reference
+                or reference_prims(fd_fused_engine, device))
+
+
+def wide_latency_setup(device, name, engine):
+    """(fused, pristine carry, seconds, name, f64 reference streams) of
+    phase_latency on another model's latency engine."""
+    t0 = time.perf_counter()
+    fused, carry = engine(device, parallel=True)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    return fused, carry, setup_s, name, reference_prims(
+        lambda d, dtype: engine(d, parallel=True, dtype=dtype), device)
+
+
+def talos_latency_setup(device):
+    return wide_latency_setup(device, "talos_latency", talos_fused_engine)
+
+
+def fd_latency_setup(device):
+    return wide_latency_setup(device, "fd_latency", fd_fused_engine)
+
+
+def walking_tick_batch(device):
+    """B carries of the Talos fused engine (f64, T=100) taken from one
+    self-fed walk of B ticks, stacked into a batch, every fourth scenario
+    switched to STANDING, with measurements perturbed from each carry's
+    xs[1] and base velocities from numpy with a fixed seed.  Returns (fused
+    engine, batched carry, measurements)."""
+    from simple_mpc_tpu_torch.mpc.mpc import STANDING
+    from simple_mpc_tpu_torch.ocp.base import tree_map
+
+    n = B
+    fused, carry = talos_fused_engine(device, dtype=torch.float64)
+    carries = []
+    for _ in range(n):
+        carry, _ = fused.step(carry, carry.xs[1])
+        carries.append(carry)
+    cb = tree_map(lambda *a: torch.stack(a), *carries)
+    rng = np.random.default_rng(11)
+    now = cb.now.clone()
+    now[1::4] = STANDING
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)  # noqa: E731
+    cb = cb._replace(now=now, velocity_base=cb.velocity_base + t(0.1 * rng.normal(size=(n, 6))))
+    x = cb.xs[:, 1] + t(0.01 * rng.normal(size=cb.xs[:, 1].shape))
+    x[:, 3:7] /= x[:, 3:7].norm(dim=-1, keepdim=True)
+    return fused, cb, x
+
+
+def phase_talos_tick_kernels(device):
+    """K9 at Talos widths (`wide_tick_refs`, csrc/tick_wide.cu) against its
+    twin `tick_refs_plain` on B=128 carries of a Talos walking stream
+    (walking_tick_batch: swings, pending events and standing scenarios).
+    Gates: the walking flags and the int32 queues equal the twin's in f32
+    and f64; in f64 the swing endpoints, the references and the CoM target
+    within 1e-10 of the twin (max|a - b| / max|b|); in f32 within ten times
+    the f32 twin's own distance from the f64 twin on the same inputs,
+    both twins run on the CPU (the F32_WIDE_TOL rule, measured in the
+    run).  Times at B=128 and B=1, the roofline bound (bytes)."""
+    from simple_mpc_tpu_torch import kernels
+    from simple_mpc_tpu_torch.ocp.base import tree_map
+
+    out, fields = {}, ("p_init", "p_final", "refs", "com_ref")
+    base = walking_tick_batch(device)
+    pending = int((base[1].land < kernels.EMPTY // 2).sum())
+    lifted = int((base[1].stage_params.contact_active == 0).any(dim=(1, 2)).sum())
+    check(pending > 0 and lifted > 0, f"talos tick batch: {pending} events, {lifted} swings")
+    for dtype in (torch.float64, torch.float32):
+        t0 = time.perf_counter()
+        if dtype == torch.float64:
+            fused, cb, x = base
+        else:
+            fused = talos_fused_engine(device, dtype=dtype)[0]
+            cast = lambda a: a.to(dtype) if a.is_floating_point() else a  # noqa: E731
+            cb, x = tree_map(cast, base[1]), cast(base[2])
+        check(kernels.stage_route(fused.ocp) == "wide", "talos tick: not the wide route")
+        n = kernels.wide_tick_refs.launches
+        got = kernels.tick_refs(fused, cb, x)
+        check(kernels.wide_tick_refs.launches == n + 1, "tick_refs did not hand Talos over")
+        want = kernels.tick_refs_plain(fused, cb, x)
+        for k in ("walking", "takeoff", "land"):
+            check(torch.equal(getattr(got, k), getattr(want, k)),
+                  f"wide_tick_refs {dtype}: {k} differs from the twin")
+        if dtype == torch.float64:
+            err = max(rel_err(getattr(got, k), getattr(want, k)) for k in fields)
+            tol, twin = 1e-10, None
+        else:
+            cpu = lambda a: a.cpu()  # noqa: E731
+            up = lambda a: a.double() if a.is_floating_point() else a  # noqa: E731
+            c_cpu, x_cpu = tree_map(cpu, cb), x.cpu()
+            ref = kernels.tick_refs_plain(fused, tree_map(up, c_cpu), x_cpu.double())
+            mine = kernels.tick_refs_plain(fused, c_cpu, x_cpu)
+            twin = max(rel_err(getattr(mine, k), getattr(ref, k)) for k in fields)
+            err = max(rel_err(getattr(got, k), getattr(ref, k)) for k in fields)
+            tol = 10 * twin
+        check(np.isfinite(err) and err <= tol,
+              f"wide_tick_refs {dtype}: {err:.3e} > {tol:.3e}")
+        c1, x1 = tree_map(lambda a: a[:1].contiguous(), cb), x[:1].contiguous()
+        times = {nb: (cuda_ms(lambda: kernels.tick_refs(fused, c, xx), REPS),
+                      cuda_ms(lambda: kernels.tick_refs_plain(fused, c, xx), REPS))
+                 for nb, c, xx in ((B, cb, x), (1, c1, x1))}
+        moved = nbytes((x, cb.stage_params.contact_active[:, T - 1], cb.now, cb.plan,
+                        cb.takeoff, cb.land, cb.p_init, cb.p_final, cb.velocity_base,
+                        cb.com0_z, got))
+        bounds = {nb: roofline(0, moved * nb / B) for nb in (B, 1)}
+        abs_err = max(float((getattr(got, k).double() - getattr(want, k).double()).abs().max())
+                      for k in fields)
+        name = str(dtype).replace("torch.", "")
+        out[name] = dict(errs=dict(wide_tick_refs=err), abs_err=dict(wide_tick_refs=abs_err),
+                         times=dict(wide_tick_refs=times[B]),
+                         bounds=dict(wide_tick_refs=bounds[B]))
+        phase(f"talos_tick_kernels_{name}", t0, B=B, T=T, nq=fused.ocp.nq, nk=fused.nk,
+              pending_land_events=pending, scenarios_with_a_swing=lifted,
+              rel_err=err, tol=tol, f32_twin_vs_f64_twin_cpu=twin, max_abs_err=abs_err,
+              ms_kernel_vs_plain={f"B{nb}": v for nb, v in times.items()},
+              bound_ms={f"B{nb}": v for nb, v in bounds.items()})
+    return out
+
+
+# JAX's own f32 `parallel_backward` against its f64 value on each
+# formulation's linearization rounded to f32, at the f32 penalty floor
+# (tests/test_torch_parallel_riccati_wide.py `test_f32_witness`, T=8, CPU:
+# max|.|/max|.| over ks and Ks, the larger of its two scenarios), printed
+# beside the kernel's f32 readings, which are not gated: without Jacobi
+# scaling the function keeps about three digits on Talos and one on full
+# dynamics whoever evaluates it
+JAX_F32_K6 = dict(talos=8.3e-4, fd=0.229)
+
+
+def k6_case(device, dtype, robot, nb):
+    """The LQ data K6 takes on the card: the Talos kinodynamics (talos_case)
+    or Go2 full-dynamics linearization at T=100 (fd_case: "fd" the 48 rows
+    of the full-dynamics latency tick, "fd_pyramids" all 68) through the
+    card's stage kernels, and its terminal Vx, Vxx; B=nb scenarios.
+    Returns (lin, Vx, Vxx, reg)."""
+    from simple_mpc_tpu_torch import kernels
+    from simple_mpc_tpu_torch.ocp.base import tree_map
+    from simple_mpc_tpu_torch.solver.proxddp import ProxDDPSolver, SolverSettings
+
+    eps = torch.finfo(dtype).eps
+    mu = torch.full((nb,), max(1e-6, eps ** 0.5), dtype=dtype, device=device)
+    if robot == "talos":
+        ocp, probs, xs, us, lam_eq, lam_in = talos_case(device, dtype, nb, T, seed=9)
+        solver = ProxDDPSolver(ocp, SolverSettings(mu_init=1e-6, u_scale="auto"))
+        sp = tree_map(torch.Tensor.contiguous, probs.stage_params)
+        lin = kernels.wide_stage_linearize(solver, sp, xs, us, lam_eq, lam_in, mu)
+    else:
+        ocp, probs, xs, us, lam_in = fd_case(device, dtype, seed=5,
+                                             force_cone=robot == "fd_pyramids")
+        xs, us, lam_in = (a[:nb].contiguous() for a in (xs, us, lam_in))
+        lam_eq = torch.zeros((nb, T, 0), dtype=dtype, device=device)
+        solver = ProxDDPSolver(ocp, SolverSettings(mu_init=1e-6))
+        sp = tree_map(lambda a: a[:nb].contiguous(), probs.stage_params)
+        lin = kernels.fd_stage_linearize(solver, sp, xs, us, lam_eq, lam_in, mu)
+    tp = tree_map(lambda a: a[:nb].contiguous(), probs.term_params)
+    lam_term = torch.zeros((nb, ocp.n_term_eq), dtype=dtype, device=device)
+    Vx, Vxx = kernels.term_linearize(solver, xs[:, -1], tp, lam_term, mu)
+    return lin, Vx, Vxx, max(solver.settings.reg_init, 50 * eps)
+
+
+def finite_rel(a, b):
+    """rel_err over the entries where b is finite (None if there are none)."""
+    keep = torch.isfinite(b)
+    return rel_err(a[keep], b[keep]) if bool(keep.any()) else None
+
+
+def phase_k6_wide_kernels(device):
+    """K6 (`parallel_riccati_backward`, csrc/parallel_riccati.cu as it is)
+    at the widths of the new latency ticks: Talos kinodynamics (nx=56,
+    nu=34) and Go2 full dynamics (nx=36, nu=12; the 48 rows of the latency
+    tick, and all 68 with the friction pyramids), on linearizations made
+    on the card (k6_case) at B=128 and B=1.  Gates: finite where the twin
+    is finite; in f64 the twin finite and the kernel within
+    max(1e-10, ten times the twin's own response to a 1e-15 relative move
+    of its inputs), as max|a - b| / max|b|; in f32 the kernel's and the f32
+    twin's distances from the f64 twin on the same inputs (over the
+    entries where that is finite) printed beside JAX's own f32 loss
+    (JAX_F32_K6), and the non-finite entries counted.  Each kernel's
+    dynamic shared memory a block against the device's opt-in maximum; the
+    combine's time (profiler) and the whole call's at B=1 and B=128; the
+    roofline bound with the 191 combines of a work-efficient scan."""
+    from simple_mpc_tpu_torch import kernels
+
+    out = {}
+    optin = kernels.smem_optin(device)
+    for robot in ("talos", "fd", "fd_pyramids"):
+        t0 = time.perf_counter()
+        line = {}
+        for dtype in (torch.float64, torch.float32):
+            dname = str(dtype).replace("torch.", "")
+            lin, Vx, Vxx, reg = k6_case(device, dtype, robot, B)
+            nx, nu = lin["B"].shape[-2:]
+            res = {}
+            for nb in (B, 1):
+                args = ({k: v[:nb].contiguous() for k, v in lin.items()},
+                        Vx[:nb].contiguous(), Vxx[:nb].contiguous())
+                got = kernels.parallel_riccati_backward(*args, reg)[:2]
+                twin = kernels.parallel_riccati_backward_plain(*args, reg)[:2]
+                fin = [torch.isfinite(b) for b in twin]
+                r = dict(non_finite=sum(int((~f).sum()) for f in fin),
+                         kernel_non_finite=sum(int((~torch.isfinite(a)).sum()) for a in got),
+                         kernel_vs_twin=max(finite_rel(a, b) or 0.0 for a, b in zip(got, twin)))
+                # where the twin is finite the kernel must be; where it is not
+                # (the f32 pass on the pyramid rows), f32 rounding decides
+                # which pivots fail, and the counts are printed
+                check(r["non_finite"] > 0 or r["kernel_non_finite"] == 0,
+                      f"K6 {robot} B={nb} {dname}: non-finite where the twin is finite")
+                if dtype == torch.float64:
+                    check(r["non_finite"] == 0, f"K6 {robot} B={nb} f64: the twin is not finite")
+                    g64 = torch.Generator(device=device).manual_seed(0)
+                    noisy = {k: v * (1 + 1e-15 * torch.randn(v.shape, generator=g64,
+                                                             dtype=dtype, device=device))
+                             for k, v in args[0].items()}
+                    spread = kernels.parallel_riccati_backward_plain(noisy, *args[1:], reg)[:2]
+                    r["twin_spread"] = max(rel_err(a, b) for a, b in zip(spread, twin))
+                    r["tol"] = max(1e-10, 10 * r["twin_spread"])
+                    check(r["kernel_vs_twin"] <= r["tol"], f"K6 {robot} B={nb} f64: {r}")
+                else:
+                    ref = kernels.parallel_riccati_backward_plain(
+                        {k: v.double() for k, v in args[0].items()}, args[1].double(),
+                        args[2].double(), reg)[:2]
+                    r.update(kernel_vs_f64=[finite_rel(a, b) for a, b in zip(got, ref)],
+                             twin_vs_f64=[finite_rel(a, b) for a, b in zip(twin, ref)],
+                             jax_f32_vs_f64_cpu_t8=JAX_F32_K6.get(robot))
+                call = lambda a=args: kernels.parallel_riccati_backward(*a, reg)  # noqa: E731
+                ev, _ = profile_kernels(call, REPS)
+                r.update(ms=cuda_ms(call, REPS),
+                         plain_ms=cuda_ms(lambda a=args: kernels.parallel_riccati_backward_plain(
+                             *a, reg), 3 if nb == B else REPS),
+                         device_ms=k6_kernel_ms(ev, T, REPS),
+                         bound=roofline(parallel_riccati_flops(nb, T, nx, nu),
+                                        nbytes((args, got)) + nbytes(got)))
+                res[f"B{nb}"] = r
+            smem = kernels.parallel_riccati_smem(nx, nu, dtype)
+            check(max(smem.values()) <= optin, f"K6 {robot} {dname}: {smem} > {optin}")
+            line[dname] = dict(res, smem_bytes=smem)
+        out[robot] = line
+        phase(f"k6_wide_kernels_{robot}", t0, T=T, nx=int(nx), nu=int(nu),
+              smem_optin_bytes=optin, **line)
+    return out
 
 
 def ptxas_report(log, names, wide=False):
@@ -2334,17 +2724,33 @@ def talos_host_mpc(device):
     return mpc
 
 
+# the fused and latency ticks of Talos and full dynamics launch at most this
+# many device kernels more than the Go2 tick of the same engine (the same
+# bookkeeping and one iteration; other parameter leaves to roll and write)
+TICK_KERNEL_SLACK = 8
+# the B=1 ticks of the fused engines of other models, beside their Go2
+# counterpart
+WIDE_TICKS = dict(talos_fused_step="fused_step", talos_latency_step_donated="latency_step_donated",
+                  fd_fused_step="fused_step", fd_latency_step_donated="latency_step_donated")
+
+
 def phase_tick_traces(device):
     """Profiler readings (trace_calls: device kernels, device-busy and wall
     ms a call, idle share) of one tick of each B=1 path in f32, after two
     warm-up ticks: the fused tick (`step`, phase_fused), the latency tick
     (`step_donated`, phase_latency), the Go2, full-dynamics and Talos host
     MPC ticks (`iterate`, phases mpc, fd_mpc without the pyramids and
-    talos_mpc) and one tick of each closed loop (the examples' `run` for one
+    talos_mpc), one tick of each closed loop (the examples' `run` for one
     MPC tick from the reference state: the iteration, the tick's references
-    and 10 inner steps).  It uses nothing this tree added to the port, so a
-    copy of this script runs it in an older tree too, for holding two trees
-    against each other in one call."""
+    and 10 inner steps), and, where the tree has their engines, the Talos
+    and full-dynamics fused `step` and latency `step_donated` (phases
+    talos_fused and fd_fused).  Each tick's device kernels are also counted
+    with call_kernels; those of the Talos and full-dynamics ticks are gated
+    at their Go2 counterpart's plus TICK_KERNEL_SLACK.  Apart from those
+    engines it uses nothing this tree added to the port, so a copy of this
+    script runs it in an older tree too, for holding two trees against each
+    other in one call."""
+    from simple_mpc_tpu_torch import configs
     from simple_mpc_tpu_torch.examples import go2_kinodynamics, talos_kinodynamics
 
     t0 = time.perf_counter()
@@ -2361,6 +2767,14 @@ def phase_tick_traces(device):
         go2_closed_loop_tick=lambda: go2_kinodynamics.run(*loop_go2, n_steps=1, log_every=0),
         talos_closed_loop_tick=lambda: talos_kinodynamics.run(*loop_talos, n_steps=1,
                                                               log_every=0))
+    if hasattr(configs, "make_talos_fused"):
+        engines = dict(talos_fused_step=talos_fused_engine(device),
+                       talos_latency_step_donated=talos_fused_engine(device, parallel=True),
+                       fd_fused_step=fd_fused_engine(device),
+                       fd_latency_step_donated=fd_fused_engine(device, parallel=True))
+        for name, (f, c) in engines.items():
+            step = f.step_donated if name.endswith("donated") else f.step
+            calls[name] = lambda step=step, c=c: step(c, c.xs[1])
     traces = {}
     for name, fn in calls.items():
         for _ in range(2):
@@ -2368,6 +2782,12 @@ def phase_tick_traces(device):
         tr = trace_calls(fn, n=5)
         traces[name] = {k: tr[k] for k in ("kernels_per_call", "device_busy_ms", "wall_ms",
                                            "idle_share")}
+        traces[name]["kernels_counted"] = call_kernels(fn)
+    for name, go2_name in WIDE_TICKS.items():
+        if name in traces:
+            n, n_go2 = traces[name]["kernels_counted"], traces[go2_name]["kernels_counted"]
+            check(0 < n <= n_go2 + TICK_KERNEL_SLACK,
+                  f"the {name} tick launches {n} device kernels, its Go2 counterpart {n_go2}")
     phase("tick_traces", t0, dtype="float32", traces=traces)
     return traces
 
@@ -2404,9 +2824,9 @@ def phase_talos_mpc(device):
 
 
 def drive_main_path(device):
-    """The main paths (phases 4-10, 12 and 14-16), each with the launch
-    counters zeroed just before it (after its set-up) and read just after;
-    returns the launches of each kernel summed over them."""
+    """The main paths (phases 4-10, 12, 14-16, 18 and 22-23), each with the
+    launch counters zeroed just before it (after its set-up) and read just
+    after; returns the launches of each kernel summed over them."""
     from simple_mpc_tpu_torch import kernels
 
     launches = dict.fromkeys((k.__name__ for k in kernels.KERNELS), 0)
@@ -2420,7 +2840,13 @@ def drive_main_path(device):
                              ("talos_fixture", phase_talos_fixture, None),
                              ("talos_mpc", phase_talos_mpc, None),
                              ("talos_closed_loop", phase_talos_closed_loop,
-                              talos_closed_loop_setup)):
+                              talos_closed_loop_setup),
+                             ("talos_fused", phase_talos_fused,
+                              lambda d: (reference_prims(talos_fused_engine, d),)),
+                             ("talos_latency", phase_latency, talos_latency_setup),
+                             ("fd_fused", phase_fd_fused,
+                              lambda d: (reference_prims(fd_fused_engine, d),)),
+                             ("fd_latency", phase_latency, fd_latency_setup)):
         args = setup(device) if setup else ()
         kernels.reset_launches()
         run(device, *args)
@@ -2441,7 +2867,7 @@ def drive_main_path(device):
 
 PHASES = ("kernels", "fd_kernels", "id_sim_kernels", "fixture", "talos_kernels",
           "talos_fixture", "talos_id_sim_kernels", "talos_closed_loop", "line_search_kernels",
-          "tick_traces")
+          "tick_traces", "talos_tick_kernels", "k6_wide_kernels", "talos_fused", "fd_fused")
 
 
 def main():
@@ -2484,7 +2910,12 @@ def main():
                     talos_id_sim_kernels=lambda d: phase_talos_id_sim_kernels(d, info["log"]),
                     talos_closed_loop=lambda d: phase_talos_closed_loop(
                         d, *talos_closed_loop_setup(d)),
-                    line_search_kernels=phase_line_search_kernels, tick_traces=phase_tick_traces)
+                    line_search_kernels=phase_line_search_kernels, tick_traces=phase_tick_traces,
+                    talos_tick_kernels=phase_talos_tick_kernels,
+                    k6_wide_kernels=phase_k6_wide_kernels,
+                    talos_fused=lambda d: (phase_talos_fused(d),
+                                           phase_latency(d, *talos_latency_setup(d))),
+                    fd_fused=lambda d: (phase_fd_fused(d), phase_latency(d, *fd_latency_setup(d))))
         for name in phases:
             runs[name](device)
         print(smi, flush=True)
@@ -2499,6 +2930,8 @@ def main():
     talres = phase_talos_kernels(device, info["log"])
     talidres = phase_talos_id_sim_kernels(device, info["log"])
     lsres = phase_line_search_kernels(device)
+    tickres = phase_talos_tick_kernels(device)
+    phase_k6_wide_kernels(device)
     launches = drive_main_path(device)
 
     replaces = dict(
@@ -2527,6 +2960,7 @@ def main():
         line_search_select=("linesearch.cu", "simple_mpc_tpu/solver/proxddp.py:529"),
         state_difference=("linesearch.cu", "simple_mpc_tpu/solver/proxddp.py:527"),
         wide_line_search_select=("linesearch_wide.cu", "simple_mpc_tpu/solver/proxddp.py:529"),
+        wide_tick_refs=("tick_wide.cu", "simple_mpc_tpu/mpc/fused.py:175"),
     )
     # line_search_select also replaces the terminal AL cost and merit
     # (:207-217) and prim and the BCL update (:546-600)
@@ -2535,7 +2969,8 @@ def main():
     # each kernel's readings from the phase that checked it (phase 3's
     # K3 and K4 are Go2's, qp_admm Go2's; the Talos phases' are printed
     # there); the closed loops' kernels at B=1
-    checked = (kres["float32"], fdres["float32"], talres["float32"], lsres["float32"])
+    checked = (kres["float32"], fdres["float32"], talres["float32"], lsres["float32"],
+               tickres["float32"])
     loops = (idres["float32"], talidres["float32"])
     f32 = {k: {n: next(c[n][k] for c in checked if k in c["errs"])
                for n in ("abs_err", "times", "bounds")}

@@ -3,8 +3,9 @@
 Port of the Go2 kinodynamics and full-dynamics entries and the Talos
 kinodynamics entry of `simple_mpc_tpu.configs` (the settings dictionaries
 of examples/go2_kinodynamics.py, examples/go2_fulldynamics.py and the
-Talos parity fixture), and the fused-tick engines of the JAX package's
-bench (`bench.py` `_make_fused`).
+Talos parity fixture), the fused-tick engines of the JAX package's bench
+(`bench.py` `_make_fused`), and fused-tick engines of the Talos
+kinodynamics and Go2 full-dynamics examples.
 """
 from __future__ import annotations
 
@@ -153,6 +154,27 @@ def make_go2_fulldynamics(T: int = 100, device="cuda", dtype=torch.float64,
     return ocp, mh, x0
 
 
+def _walking(mpc, plan, walk, mu_init, parallel):
+    """`mpc` with its tick solver one iteration with `mu_init`, serial
+    Riccati (K3) or with `parallel` the associative scan (K6), the cyclic
+    `plan`, walking at `walk`."""
+    from .parallel import BatchedSolver
+    from .solver.proxddp import ProxDDPSolver, SolverSettings
+
+    mpc.solver = BatchedSolver(ProxDDPSolver(mpc.ocp_handler, SolverSettings(
+        tol=mpc.settings.TOL, mu_init=mu_init, max_iters=1, parallel=parallel)))
+    mpc.generate_cycle_horizon(plan)
+    mpc.switch_to_walk(np.asarray(walk, np.float64))
+    return mpc
+
+
+def _fused(mpc):
+    from .mpc import FusedMPC
+
+    fused = FusedMPC(mpc)
+    return fused, fused.make_carry(mpc)
+
+
 def make_go2_fused(T: int = 100, device="cuda", dtype=torch.float32, parallel=False):
     """The fused-tick engine of the JAX package's bench (`bench.py:277-311`):
     Go2 kinodynamics, trot 10/30/10/30 at 0.2 m/s, apex 0.15 m, one
@@ -161,19 +183,77 @@ def make_go2_fused(T: int = 100, device="cuda", dtype=torch.float32, parallel=Fa
     B=1 latency configuration (associative-scan Riccati, K6), at full
     precision (the bench's bfloat16 tangents are not ported).  Returns
     (fused, carry)."""
-    from .mpc import MPC, FusedMPC, MPCSettings
-    from .parallel import BatchedSolver
-    from .solver.proxddp import ProxDDPSolver, SolverSettings
+    from .mpc import MPC, MPCSettings
 
     ocp, mh, _ = make_go2_kinodynamics(T, device=device, dtype=dtype)
     mpc = MPC(MPCSettings(support_force=mh.mass * 9.81, max_iters=1, T_fly=30,
                           T_contact=10, swing_apex=0.15, init_max_iters=2), ocp)
-    mpc.solver = BatchedSolver(ProxDDPSolver(ocp, SolverSettings(
-        tol=mpc.settings.TOL, mu_init=1e-6, max_iters=1, parallel=parallel)))
     FL, FR, RL, RR = mh.feet_names
     allc = {n: True for n in mh.feet_names}
-    mpc.generate_cycle_horizon([allc] * 10 + [{FL: True, FR: False, RL: False, RR: True}] * 30
-                               + [allc] * 10 + [{FL: False, FR: True, RL: True, RR: False}] * 30)
-    mpc.switch_to_walk(np.array([0.2, 0, 0, 0, 0, 0]))
-    fused = FusedMPC(mpc)
-    return fused, fused.make_carry(mpc)
+    plan = ([allc] * 10 + [{FL: True, FR: False, RL: False, RR: True}] * 30
+            + [allc] * 10 + [{FL: False, FR: True, RL: True, RR: False}] * 30)
+    return _fused(_walking(mpc, plan, [0.2, 0, 0, 0, 0, 0], 1e-6, parallel))
+
+
+def talos_mpc(T: int = 100, device="cuda", dtype=torch.float32, parallel=False, gait=None,
+              **mpc_settings):
+    """The host MPC of `make_talos_fused`, walking: Talos kinodynamics (23
+    joints, two 6D quad feet) with the weights, MPCSettings (T_fly 80,
+    T_contact 20, apex 0.1 m, mu_init 1e-8), biped gait and 0.1 m/s walk of
+    the port's examples/talos_kinodynamics.py, one iteration a tick, serial
+    Riccati or with `parallel` K6.  `gait` (a list of {foot: in contact})
+    replaces the biped gait and `mpc_settings` fields of MPCSettings (the
+    first solve's `init_max_iters`, 100 by default)."""
+    from .examples.talos_kinodynamics import (MPC_SETTINGS, WALK, biped,
+                                              talos_kinodynamics_config)
+    from .mpc import MPC, MPCSettings
+    from .ocp.kinodynamics import KinodynamicsOCP
+
+    mh = talos_handler()
+    ocp = KinodynamicsOCP(talos_kinodynamics_config(mh), mh, device, dtype)
+    ocp.create_problem(np.asarray(mh.reference_state), T, 6, -9.81, False)
+    mpc = MPC(MPCSettings(support_force=mh.mass * 9.81,
+                          **{**MPC_SETTINGS, **mpc_settings}), ocp)
+    return _walking(mpc, biped(mh.feet_names) if gait is None else gait, WALK,
+                    mpc.settings.mu_init, parallel)
+
+
+def make_talos_fused(T: int = 100, device="cuda", dtype=torch.float32, parallel=False,
+                     gait=None, **mpc_settings):
+    """Talos kinodynamics on the fused tick (`talos_mpc`'s engine;
+    `parallel=True` the B=1 latency configuration).  Returns (fused,
+    carry)."""
+    return _fused(talos_mpc(T, device, dtype, parallel, gait, **mpc_settings))
+
+
+def go2_fd_mpc(T: int = 50, device="cuda", dtype=torch.float32, parallel=False,
+               force_cone=False, gait=None, **mpc_settings):
+    """The host MPC of `make_go2_fd_fused`, walking: Go2 full dynamics with
+    the MPCSettings of examples/go2_fulldynamics.py (T_fly 30, T_contact
+    10, apex 0.05 m, mu_init 1e-8) and its trot 10/30/10/30 at 0.2 m/s, one
+    iteration a tick, serial Riccati or with `parallel` K6.  The friction
+    pyramids are off by default: at the standing posture no force inside
+    them holds the robot at rest (tests/test_torch_fulldynamics.py
+    `test_pyramids_exclude_rest_at_the_standing_posture`).  `gait` and
+    `mpc_settings` as in `talos_mpc`."""
+    from .mpc import MPC, MPCSettings
+
+    ocp, mh, _ = make_go2_fulldynamics(T, device=device, dtype=dtype, force_cone=force_cone)
+    settings = dict(TOL=1e-4, mu_init=1e-8, max_iters=1, swing_apex=0.05, T_fly=30,
+                    T_contact=10, timestep=0.01)
+    mpc = MPC(MPCSettings(support_force=mh.mass * 9.81, **{**settings, **mpc_settings}), ocp)
+    feet = mh.feet_names
+    ds = {f: True for f in feet}
+    pair_a = {f: f in ("FL_foot", "RR_foot") for f in feet}
+    pair_b = {f: f in ("FR_foot", "RL_foot") for f in feet}
+    trot = [ds] * 10 + [pair_a] * 30 + [ds] * 10 + [pair_b] * 30
+    return _walking(mpc, trot if gait is None else gait, [0.2, 0, 0, 0, 0, 0],
+                    mpc.settings.mu_init, parallel)
+
+
+def make_go2_fd_fused(T: int = 50, device="cuda", dtype=torch.float32, parallel=False,
+                      force_cone=False, gait=None, **mpc_settings):
+    """Go2 full dynamics on the fused tick (`go2_fd_mpc`'s engine;
+    `parallel=True` the B=1 latency configuration).  Returns (fused,
+    carry)."""
+    return _fused(go2_fd_mpc(T, device, dtype, parallel, force_cone, gait, **mpc_settings))

@@ -36,7 +36,10 @@ than 16 joints or more than 64 tangent directions (Talos kinodynamics);
 `stage_route` decides, and `stage_linearize`, `stage_eval` and
 `term_linearize` hand a wide OCP's CUDA tensors to them.
 K9 `tick_refs` (csrc/tick.cu) replaces the bookkeeping of
-`simple_mpc_tpu/mpc/fused.py` `FusedMPC._step` before the solve.
+`simple_mpc_tpu/mpc/fused.py` `FusedMPC._step` before the solve;
+`wide_tick_refs` (csrc/tick_wide.cu, tick.cu compiled again over
+csrc/stage_wide.cuh) takes the OCPs that `stage_route` sends to the wide
+stage kernels (Talos), and `tick_refs` hands their CUDA tensors over.
 K8 `qp_admm` (csrc/qp.cu) replaces `simple_mpc_tpu/id/qp.py` `solve_qp`,
 the ADMM QP of the inverse-dynamics layer (twin `id/qp.py`), and
 `id_assemble` (csrc/id.cu) its assembly
@@ -96,7 +99,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("riccati.cu", "parallel_riccati.cu", "rollout.cu", "linearize.cu", "fulldyn.cu",
            "tick.cu", "qp.cu", "id.cu", "sim.cu", "linearize_wide.cu", "acc.cu", "acc_wide.cu",
-           "id_wide.cu", "sim_wide.cu", "linesearch.cu", "linesearch_wide.cu")
+           "id_wide.cu", "sim_wide.cu", "linesearch.cu", "linesearch_wide.cu",
+           "tick_wide.cu")
 HEADERS = ("stage.cuh", "fulldyn.cuh", "stage_wide.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -182,6 +186,7 @@ def _library() -> ctypes.CDLL:
             wide_stage_eval=[P] * 13 + [I] * 3 + [P] * 5,
             wide_term_linearize=[P] * 7 + [I] + [P] * 3,
             tick_refs=[P] * 12 + [I] * 6 + [D, D] + [P] * 8,
+            wide_tick_refs=[P] * 12 + [I] * 6 + [D, D] + [P] * 8,
             qp_admm=[P] * 7 + [I] * 4 + [D] * 3 + [P] * 5,
             id_assemble=[P] * 10 + [I] * 4 + [P] * 9,
             wide_id_assemble=[P] * 10 + [I] * 4 + [P] * 9,
@@ -360,9 +365,51 @@ riccati_backward.launches = 0
 # ---------------------------------------------------------------------------
 
 
+# the driver's attribute, of the same value as the runtime's
+# cudaDevAttrMaxSharedMemoryPerBlockOptin
+CU_DEVICE_ATTRIBUTE_MAX_SHARED_MEMORY_PER_BLOCK_OPTIN = 97
+_smem_optin: dict = {}
+
+
+def smem_optin(device) -> int:
+    """The device's opt-in maximum of dynamic shared memory a block, in
+    bytes (227 KB on Hopper), read once per device from the CUDA driver."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _smem_optin:
+        cu = ctypes.CDLL("libcuda.so.1")
+        dev, val = ctypes.c_int(), ctypes.c_int()
+        for err, what in ((cu.cuInit(0), "cuInit"),
+                          (cu.cuDeviceGet(ctypes.byref(dev), index), "cuDeviceGet"),
+                          (cu.cuDeviceGetAttribute(
+                              ctypes.byref(val),
+                              CU_DEVICE_ATTRIBUTE_MAX_SHARED_MEMORY_PER_BLOCK_OPTIN, dev),
+                           "cuDeviceGetAttribute")):
+            if err != 0:
+                raise RuntimeError(f"{what}: CUDA driver error {err}")
+        _smem_optin[index] = val.value
+    return _smem_optin[index]
+
+
+def parallel_riccati_smem(nx: int, nu: int, dtype) -> dict:
+    """Bytes of dynamic shared memory a block of each of K6's three
+    kernels takes (csrc/parallel_riccati.cu `eliminate_smem_elems`,
+    `combine_smem_elems`, `gains_smem_elems`)."""
+    size = torch.finfo(dtype).bits // 8
+    return dict(eliminate=size * (nu * nu + nu * (2 * nx + 1) + 2 * nx * nu + nx * nx + nu),
+                combine=size * (7 * nx * nx + 3 * nx),
+                gains=size * (2 * nx * nx + 2 * nx * nu + nx + nu * nu + nu * (nx + 1)))
+
+
 def _parallel_riccati_cuda(lin: dict, Vx_T, Vxx_T, reg: float):
     dtype, device = Vx_T.dtype, Vx_T.device
     (nb, T, nx, nu), inputs, out = _backward_args(lin, Vx_T, Vxx_T)
+    limit = smem_optin(device)
+    smem = parallel_riccati_smem(nx, nu, dtype)
+    if max(smem.values()) > limit:
+        raise NotImplementedError(
+            f"parallel_riccati_backward at nx={nx}, nu={nu} in {dtype} needs {smem} bytes "
+            f"of shared memory a block; the device allows {limit}")
     # the two element buffers (B, T+1, 3 nx^2 + 2 nx) the scan levels
     # alternate between; freed to the caching allocator on return, its next
     # user runs after these launches on the same stream
@@ -379,7 +426,10 @@ def parallel_riccati_backward(lin: dict, Vx_T, Vxx_T, reg: float, dual_scale=Non
     """K6, the contract of `riccati_backward` with the semantics of the
     JAX package's `parallel_backward` (Quu + reg I without Jacobi scaling,
     NaN where a Cholesky fails).  One call launches the elimination,
-    ceil(log2(T+1)) scan levels and the gain recovery."""
+    ceil(log2(T+1)) scan levels and the gain recovery.  On the card a width
+    whose shared memory a block (`parallel_riccati_smem`) exceeds the
+    device's opt-in maximum (`smem_optin`) raises NotImplementedError
+    before any launch."""
     dev = lin["A"].device
     if dev.type == "cpu":
         ks, Ks, Qus = parallel_riccati_backward_plain(lin, Vx_T, Vxx_T, reg)
@@ -1404,6 +1454,7 @@ wide_line_search_select.launches = 0
 # ---------------------------------------------------------------------------
 
 EMPTY = 2**30  # sentinel of an empty event-queue slot (int32)
+TICK_MAX_QUEUE = 16  # tick.cu kMaxQueue: slots of a foot's event queue
 WALKING = 0  # mpc.WALKING
 
 
@@ -1475,12 +1526,15 @@ def tick_refs_plain(fused, carry, x_meas):
     return TickRefs(walking, takeoff, land, p_init, p_final, refs, com_ref)
 
 
-def _tick_cuda(fused, carry, x_meas):
+def _tick_cuda(fused, carry, x_meas, wide=False):
     ocp, s = fused.ocp, fused.settings
     dtype, device = x_meas.dtype, x_meas.device
-    C, dims = _stage_consts(ocp, dtype, device)
     nb, L, nk = carry.plan.shape
     T, qmax = fused.T, carry.takeoff.shape[-1]
+    if qmax > TICK_MAX_QUEUE:
+        raise NotImplementedError(f"tick_refs takes at most {TICK_MAX_QUEUE} events a foot "
+                                  f"queue, got {qmax}")
+    C, dims = _stage_consts(ocp, dtype, device, wide)
     shapes = dict(x=(nb, ocp.nq + ocp.nv), active_last=(nb, nk), now=(nb,),
                   plan=(nb, L, nk), takeoff=(nb, nk, qmax), land=(nb, nk, qmax),
                   p_init=(nb, nk, 3), p_final=(nb, nk, 3), vbase=(nb, 6), com0_z=(nb,))
@@ -1496,23 +1550,27 @@ def _tick_cuda(fused, carry, x_meas):
     out = TickRefs(empty((nb,), torch.int32), empty((nb, nk, qmax), torch.int32),
                    empty((nb, nk, qmax), torch.int32), empty((nb, nk, 3)),
                    empty((nb, nk, 3)), empty((nb, T, nk, 3)), empty((nb, 3)))
-    fn = getattr(_library(), f"smpc_tick_refs_{_suffix(dtype)}")
+    name = f"{'wide_' if wide else ''}tick_refs"
+    fn = getattr(_library(), f"smpc_{name}_{_suffix(dtype)}")
     with torch.cuda.device(device):
         err = fn(ctypes.addressof(dims), C.data_ptr(),
                  *[t[k].data_ptr() for k in shapes], nb, T, L, qmax, EMPTY,
                  s.T_fly, float((s.T_fly + s.T_contact) * s.timestep),
                  float(s.swing_apex), *[o.data_ptr() for o in out], _stream(device))
-    _raise_on(err, "tick_refs")
+    _raise_on(err, name)
     return out._replace(walking=out.walking != 0)
 
 
 def tick_refs(fused, carry, x_meas):
     """K9.  carry: an `MPCCarry` with the scenario axis leading every leaf;
-    x_meas (B,nx).  Returns `TickRefs`."""
+    x_meas (B,nx).  Returns `TickRefs`.  An OCP that `stage_route` sends
+    to the wide stage kernels goes to `wide_tick_refs` on the card."""
     dev = x_meas.device
     if dev.type == "cpu":
         return tick_refs_plain(fused, carry, x_meas)
     if dev.type == "cuda":
+        if stage_route(fused.ocp) == "wide":
+            return wide_tick_refs(fused, carry, x_meas)
         out = _tick_cuda(fused, carry, x_meas)
         tick_refs.launches += 1
         return out
@@ -1520,6 +1578,24 @@ def tick_refs(fused, carry, x_meas):
 
 
 tick_refs.launches = 0
+
+
+def wide_tick_refs(fused, carry, x_meas):
+    """K9 at wide shapes (csrc/tick_wide.cu): `tick_refs`' contract for
+    6D contacts and up to WIDE_MAX_JOINTS joints (a kinodynamics OCP that
+    `stage_route` accepts), MAX_FEET feet and TICK_MAX_QUEUE events a foot
+    queue."""
+    dev = x_meas.device
+    if dev.type == "cpu":
+        return tick_refs_plain(fused, carry, x_meas)
+    if dev.type == "cuda":
+        out = _tick_cuda(fused, carry, x_meas, wide=True)
+        wide_tick_refs.launches += 1
+        return out
+    raise RuntimeError(f"wide_tick_refs: no kernel for device {dev}")
+
+
+wide_tick_refs.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1790,7 +1866,7 @@ KERNELS = (stage_linearize, stage_eval, riccati_backward, parallel_riccati_backw
            fd_dynamics, qp_admm, id_assemble, sim_step, wide_stage_linearize,
            wide_stage_eval, wide_term_linearize, state_derivative, wide_state_derivative,
            wide_id_assemble, wide_sim_step, candidate_integrate, state_difference,
-           line_search_select, wide_line_search_select)
+           line_search_select, wide_line_search_select, wide_tick_refs)
 
 
 def reset_launches():
