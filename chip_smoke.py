@@ -139,11 +139,39 @@ Phases, each printing one line; any failure raises and exits non-zero:
  24. fd_fused, fd_latency — the same on Go2 full dynamics T=50 (B=1
                step; configs.make_go2_fd_fused, pyramids cut as in 10),
                gated at feasibility_gate against the same ticks in f64.
-Phases 4-10, 12, 14-16, 18 and 23-24 drive the main paths; every solver call
+ 25. talos_fd_kernels — (after phase 22) the wide full-dynamics kernels
+               of csrc/fulldyn_wide.cu (K7 with 6D LOCAL_WORLD_ALIGNED
+               contacts at 23 joints: wide_fd_stage_linearize,
+               wide_fd_stage_eval, wide_fd_dynamics) and the wide K5 and
+               select on a full-dynamics OCP against their twins, f32 and
+               f64, on one iteration's inputs of Talos full dynamics at
+               B=128, T=100, of a B=2, T=10 problem with the wrench cones,
+               landing rows and Baumgarte gains, and of a real iterate of
+               the Talos walking stream at B=1 (phase_talos_fd_kernels
+               states the gates); times, bounds, registers, stack, shared
+               memory and the device memory the first launch takes.
+ 26. talos_fd_batched — 30 one-iteration solves of B=128 Talos
+               full-dynamics T=100 problems, f32, from the quasistatic
+               warm start: last max prim < 1e-3 (or 10 % above the same
+               stream in f64 where that misses it); solves/s.
+ 27. talos_fd_mpc — the host MPC on Talos full dynamics T=100 (the
+               example's gait), f32, 40 self-fed ticks: finite, no
+               divergence, stage-0 wrenches unilateral with Σfz within 35 %
+               of m g; tick p50/p99 and one tick's trace.
+ 28. talos_fd_closed_loop — (after the main paths) a reading, not gated:
+               the port's examples/talos_fulldynamics.py on the card at its
+               own T=100 (Riccati feedback at 1 kHz into the simulator), 30
+               ticks, f32 and f64, on the example's plant (a point contact
+               at each sole) and on one with the quad feet's corner points;
+               the first tick out of JAX's smoke band, the base z range and
+               the largest |v| before it.  On the example's plant the robot
+               leaves the band within a few ticks in either precision, so
+               this closed loop is not a main path (ROADMAP Queue 3).
+Phases 4-10, 12, 14-16, 18, 23-24, 26 and 27 drive the main paths; every solver call
 launches state_difference once and candidate_integrate and
 line_search_select once an iteration (its wide instance on Talos).  The
 kernels' launch counters are zeroed just before each of them (after the
-latency engine's and the closed loop's set-up, whose first solves run
+latency engine's and the closed loops' set-up, whose first solves run
 before the path) and read just after (a `<phase>_launches` line): each
 must have launched every kernel it runs (phase 7 the nine of the serial
 tick; phase 8 the same with K6 in place of K3, and K3 never; phases 23-24
@@ -154,10 +182,12 @@ and 18 the eight solver kernels exactly once a tick, the three inner
 kernels exactly once an inner step and the state derivative exactly twice
 a tick, phase 18 the wide ones of each and never the Go2 ones; phases
 14-16 the four wide kernels, K3 and K4's rollout, integrate and initial
-gap, and never the Go2 stage kernels; no Go2 phase a wide kernel).  The kernel
-summary's `launches` is the sum over those sixteen runs; the launches of
-phases 3, 11, 13, 17, 19, 21 and 22 and of phases 12's and 18's timings are
-not counted.  Its `bound_ms` is the larger of the bytes each
+gap, and never the Go2 stage kernels; no Go2 phase a wide kernel; phases
+26 and 27 the wide full-dynamics kernels with the wide K5 and select, and
+never a kinodynamics or Go2 full-dynamics stage kernel, and no other path
+those).  The kernel summary's `launches` is the sum over those eighteen
+runs; the launches of phases 3, 11, 13, 17, 19, 21, 22, 25 and 28 and of
+phases 12's and 18's timings are not counted.  Its `bound_ms` is the larger of the bytes each
 kernel moves (inputs read once, outputs written once, at the summary's
 shape) over 3.35 TB/s and its counted FLOPs over 67 TFLOP/s (H100 SXM,
 FP32 outside the tensor cores); FLOPs of the rigid-body arithmetic of K1,
@@ -176,6 +206,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -232,8 +263,19 @@ PATH_KERNELS.update(talos_fused=TALOS_TICK_KERNELS + ("riccati_backward",),
                     fd_fused=FD_TICK_KERNELS + ("riccati_backward",),
                     fd_latency=FD_TICK_KERNELS + ("parallel_riccati_backward",))
 PATH_KERNELS["closed_loop"] = SOLVER_KERNELS + INNER_KERNELS + ("state_derivative",)
+# Talos full dynamics (wide K7, its K5 and select) on the batched solver,
+# the host MPC (its contact wrenches through K7 alone) and the
+# Riccati-feedback closed loop (K7 alone for the state derivatives, the wide
+# simulator a step)
+TALOS_FD_SOLVER_KERNELS = ("wide_fd_stage_linearize", "wide_fd_stage_eval",
+                           "wide_term_linearize", "wide_line_search_select", "riccati_backward",
+                           "linear_rollout", "candidate_integrate", "state_difference")
+WIDE_FD_KERNELS = ("wide_fd_stage_linearize", "wide_fd_stage_eval", "wide_fd_dynamics")
+PATH_KERNELS.update(talos_fd_batched=TALOS_FD_SOLVER_KERNELS,
+                    talos_fd_mpc=TALOS_FD_SOLVER_KERNELS + ("wide_fd_dynamics",))
 PATH_KERNELS["talos_closed_loop"] = (TALOS_SOLVER_KERNELS + TALOS_INNER_KERNELS
                                      + ("wide_state_derivative",))
+TALOS_FD_LOOP_TICKS = 30  # tests/test_examples_smoke.py:43 runs 25
 
 
 def loop_launches(solver, inner, refs, ticks):
@@ -268,6 +310,19 @@ for _path in ("batched", "fixture", "mpc", "fused", "latency", "fd_batched", "fd
               "closed_loop", "fd_fused", "fd_latency"):
     PATH_ABSENT[_path] = (PATH_ABSENT.get(_path, ()) + WIDE_KERNELS + WIDE_LOOP_KERNELS
                           + ("wide_tick_refs",))
+# no kinodynamics path launches a full-dynamics kernel; the Talos
+# full-dynamics paths launch neither the Go2 nor the kinodynamics stage
+# kernels, no fused-tick kernel, and their closed loop no ID
+_KINO_STAGE = ("stage_linearize", "stage_eval", "wide_stage_linearize", "wide_stage_eval",
+               "state_derivative", "wide_state_derivative")
+_GO2_FD = ("fd_stage_linearize", "fd_stage_eval", "fd_dynamics", "term_linearize",
+           "line_search_select")
+for _path in PATH_KERNELS:
+    if not _path.startswith("talos_fd"):
+        PATH_ABSENT[_path] = PATH_ABSENT.get(_path, ()) + WIDE_FD_KERNELS
+for _path in ("talos_fd_batched", "talos_fd_mpc"):
+    PATH_ABSENT[_path] = (_KINO_STAGE + _GO2_FD + ("tick_refs", "wide_tick_refs",
+                                                     "parallel_riccati_backward"))
 FD_MPC_T = 50  # examples/go2_fulldynamics.py's horizon
 TALOS_CONE_B, TALOS_CONE_T = 2, 10  # the wrench-cone case of phase_talos_kernels
 # most multiplier rounds of the Talos f32 fixture re-solve: two
@@ -743,8 +798,8 @@ def standing_torques(ocp, x0):
     full-dynamics fixture (`tools/make_parity_fixtures.py`
     `_quasistatic_torques`): with v = 0 and ddq = 0 the dynamics
     M ddq = [0; tau] - b + Jc^T f leave Jc^T f = b - [0; tau]; the base rows
-    fix the contact forces nearest the force references f_ref, the joint
-    rows then give tau."""
+    fix the contact forces (wrenches with 6D contacts) nearest the force
+    references f_ref, the joint rows then give tau."""
     from simple_mpc_tpu_torch.ops import soa, soa_dyn
 
     m = ocp.model
@@ -753,7 +808,7 @@ def standing_torques(ocp, x0):
     oR, op = soa.fk_world(m, q)
     Sw = soa.world_axes(m, oR, op)
     b = soa_dyn.nle_world(m, oR, op, Sw, soa.body_velocities(m, Sw, v), v)[:, 0]
-    J = soa_dyn.contact_jacobians(m, oR, op, Sw, ocp.feet_fids, 3)[0][..., 0]  # (3 nk, nv)
+    J = soa_dyn.contact_jacobians(m, oR, op, Sw, ocp.feet_fids, ocp.fs)[0][..., 0]  # (fs nk, nv)
     f_ref = ocp.problem.stage_params.f_ref[0].reshape(-1).to("cpu", torch.float64)
     Jb = J[:, :6].T
     f = f_ref + torch.linalg.pinv(Jb) @ (b[:6] - Jb @ f_ref)
@@ -2823,8 +2878,574 @@ def phase_talos_mpc(device):
           land=mpc.get_foot_land_cycle(l), tick_trace=trace)
 
 
+# ---------------------------------------------------------------------------
+# Talos full dynamics (6D contacts, 23 joints): the wide K7
+# ---------------------------------------------------------------------------
+
+TALOS_FD_CONE_B, TALOS_FD_CONE_T = 2, 10  # the cones-and-landing case of phase_talos_fd_kernels
+TWIN_CHUNK = 64  # scenarios a call of the full-dynamics twins takes (their memory on the card)
+TALOS_FD_MPC_TICKS = 40
+TALOS_FD_LOOP_T = 100  # the example's own horizon (phase_talos_fd_closed_loop)
+# f32 wide full-dynamics kernels vs their twin in f64 (see
+# phase_talos_fd_kernels): ten times the f32 twin's own distance from the
+# f64 twin in that phase's recipe ("twin_vs64" of talos_fd_check, the
+# largest over its three cases, read by the phase on an NVIDIA H100 80GB
+# HBM3 at 700 W: 2.7e-4, 1.8e-4, 4.2e-3, 1.5e-6 and 1.0e-7, each from the
+# walking stream's iterate)
+F32_TALOS_FD_TOL = dict(wide_fd_stage_linearize=2.7e-3, wide_fd_stage_eval=1.8e-3,
+                        wide_fd_dynamics=4.3e-2, wide_term_linearize=1.5e-5,
+                        wide_line_search_select=1.0e-6)
+
+
+def talos_fd_ocp(device, dtype, nT, force_cone=False, land=False):
+    """`configs.make_talos_fulldynamics` at horizon nT; with `land` the
+    landing equalities on and the Baumgarte gains of
+    tests/test_torch_talos_fd.py (kp, kd vectors) set.  Returns (ocp, mh,
+    x0)."""
+    from simple_mpc_tpu_torch.configs import make_talos_fulldynamics
+    from simple_mpc_tpu_torch.ocp.fulldynamics import FullDynamicsOCP
+
+    ocp, mh, x0 = make_talos_fulldynamics(nT, device=device, dtype=dtype,
+                                          force_cone=force_cone)
+    if land:
+        s = ocp.settings
+        s.land_cstr = True
+        s.Kp_correction, s.Kd_correction = np.linspace(5.0, 30.0, 6), np.linspace(0.5, 4.0, 6)
+        ocp = FullDynamicsOCP(s, mh, device, dtype)
+        ocp.create_problem(x0, nT, 6, -9.81, False)
+    return ocp, mh, x0
+
+
+def talos_fd_case(device, dtype, nb, nT, seed, force_cone=False, land=False):
+    """Talos full dynamics at half_sitting, horizon nT, batched nb times:
+    the left foot lifted on stages 1, 5, 9, ..., the right on 3, 7, ...
+    (the landing flag on the stage after each lift), the reference foot
+    rotations turned by up to ~0.1 rad; a warm start (states, and joint
+    torques about the quasistatic ones) and multipliers perturbed from numpy
+    with a fixed seed.  Returns (ocp, problems, xs, us, lam_eq, lam_in)."""
+    from scipy.spatial.transform import Rotation
+
+    from simple_mpc_tpu_torch.ocp.base import Problem
+    from simple_mpc_tpu_torch.parallel import tile_problem
+
+    ocp, mh, x0 = talos_fd_ocp(device, dtype, nT, force_cone, land)
+    rng = np.random.default_rng(seed)
+    sp = ocp.problem.stage_params
+    act, lnd = sp.contact_active.clone(), sp.land.clone()
+    act[1::4, 0] = 0.0
+    act[3::4, 1] = 0.0
+    lnd[2::4, 0] = 1.0
+    lnd[4::4, 1] = 1.0
+    turn = Rotation.from_rotvec(0.05 * rng.normal(size=(nT * ocp.nk, 3))).as_matrix()
+    R = sp.foot_ref_R @ torch.as_tensor(turn.reshape(nT, ocp.nk, 3, 3), dtype=dtype,
+                                        device=device)
+    ocp.problem = Problem(x0=ocp.problem.x0, term_params=ocp.problem.term_params,
+                          stage_params=sp._replace(contact_active=act, land=lnd,
+                                                   foot_ref_R=R.contiguous()))
+    xs = np.repeat(x0[None, None], nb, 0).repeat(nT + 1, 1)
+    xs = xs + 0.01 * rng.normal(size=xs.shape)
+    xs[..., 3:7] /= np.linalg.norm(xs[..., 3:7], axis=-1, keepdims=True)
+    us = standing_torques(ocp, x0) + 5.0 * rng.normal(size=(nb, nT, ocp.nu))
+    lam_eq = 0.1 * rng.normal(size=(nb, nT, ocp.n_eq))
+    lam_in = 0.1 * np.abs(rng.normal(size=(nb, nT, ocp.n_in)))
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
+    return ocp, tile_problem(ocp.problem, nb), t(xs), t(us), t(lam_eq), t(lam_in)
+
+
+def talos_fd_stream_case(device, dtype, ticks=5):
+    """One real iterate of a Talos walking stream: the host MPC of
+    phase_talos_fd_mpc in `dtype` after `ticks` self-fed ticks (the left
+    foot's swing in the horizon), as a B=1 case: (ocp, problems, xs, us,
+    lam_eq, lam_in)."""
+    from simple_mpc_tpu_torch.parallel import tile_problem
+
+    mpc = talos_fd_host_mpc(device, dtype)
+    for _ in range(ticks):
+        mpc.iterate(mpc.xs[1])
+    ocp = mpc.ocp_handler
+    return (ocp, tile_problem(ocp.problem, 1), mpc.xs[None].contiguous(),
+            mpc.us[None].contiguous(), mpc.lams[0][None].contiguous(),
+            mpc.lams[1][None].contiguous())
+
+
+def chunked(fn, solver, nb, *args, size=TWIN_CHUNK):
+    """fn(solver, *args) over the leading axis `size` at a time (every
+    tensor leaf with a leading axis of nb is cut), the outputs joined along
+    their leading axis: the full-dynamics twins' torch.func sweep over a
+    whole B=128 batch would hold tens of GB on the card."""
+    from simple_mpc_tpu_torch.ocp.base import tree_map
+
+    def cut(a, sl):
+        if isinstance(a, tuple) and hasattr(a, "_fields"):
+            return tree_map(lambda x: cut(x, sl), a)
+        return a[sl] if torch.is_tensor(a) and a.dim() and a.shape[0] == nb else a
+
+    outs = [fn(solver, *[cut(a, slice(s, s + size)) for a in args])
+            for s in range(0, nb, size)]
+    if isinstance(outs[0], dict):
+        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def talos_fd_iteration(case, dtype, device):
+    """The inputs of each wide kernel in one solver iteration on a
+    talos_fd_case (or stream case): the linearization's, the terminal
+    Jacobian's, the candidates' evaluation (K3 and the rollout through the
+    kernels), the dynamics' on the B*T stage lanes and the select's
+    (ls_case's schedule: mu at the dtype's floor, omega unset)."""
+    from simple_mpc_tpu_torch import kernels
+    from simple_mpc_tpu_torch.ocp.base import tree_map
+    from simple_mpc_tpu_torch.solver.proxddp import ProxDDPSolver, SolverSettings
+
+    ocp, probs, xs, us, lam_eq, lam_in = case
+    nb, nT = us.shape[:2]
+    solver = ProxDDPSolver(ocp, SolverSettings(mu_init=1e-6, alphas=ALPHAS, u_scale="auto"))
+    st = solver.settings
+    eps = torch.finfo(dtype).eps
+    mu = torch.full((nb,), max(1e-6, eps ** 0.5), dtype=dtype, device=device)
+    lam_term = torch.zeros((nb, ocp.n_term_eq), dtype=dtype, device=device)
+    sp = tree_map(torch.Tensor.contiguous, probs.stage_params)
+    tp = tree_map(torch.Tensor.contiguous, probs.term_params)
+    x0 = probs.x0.contiguous()
+    lin_args = (sp, xs, us, lam_eq, lam_in, mu)
+    lin = kernels.wide_fd_stage_linearize(solver, *lin_args)
+    term_args = (xs[:, -1], tp, lam_term, mu)
+    Vx, Vxx = kernels.wide_term_linearize(solver, *term_args)
+    ks, Ks, dual = solver._backward(lin, Vx, Vxx, max(st.reg_init, 50 * eps))
+    alphas = torch.as_tensor(ALPHAS, dtype=dtype, device=device)
+    dxs, dus = kernels.linear_rollout(lin["A"], lin["B"], lin["d"], ks, Ks,
+                                      kernels.state_difference(solver, xs[:, 0], x0), alphas)
+    xs_c, us_c = kernels.candidate_integrate(solver, xs, us, dxs, dus)
+    eval_args = (sp, xs_c, us_c, lam_eq, lam_in, mu)
+    costs, g, h, gap = kernels.wide_fd_stage_eval(solver, *eval_args)
+    eta = torch.clamp(mu ** st.bcl_alpha, min=float(st.tol))
+    omega = torch.full((nb,), -1.0, dtype=dtype, device=device)
+    sel_args = (xs_c, us_c, costs, g, h, gap, tp, x0, lam_eq, lam_in, lam_term, mu, eta,
+                omega, dual, alphas)
+    dyn_args = (xs[:, :-1].reshape(nb * nT, -1).contiguous(),
+                us.reshape(nb * nT, -1).contiguous(),
+                tree_map(lambda a: a.reshape((nb * nT,) + a.shape[2:]).contiguous(), sp))
+    return dict(solver=solver, ocp=ocp, lin_args=lin_args, lin=lin, term_args=term_args,
+                term=(Vx, Vxx), eval_args=eval_args, ev=(costs, g, h, gap),
+                sel_args=sel_args, dyn_args=dyn_args)
+
+
+def talos_fd_runs(it):
+    """{kernel: (the kernel's call, its twin's call)} on one iteration's
+    inputs (talos_fd_iteration); each call takes that input tuple (as64
+    gives the f64 twin's).  The twins of the linearization, the candidates
+    and the dynamics run TWIN_CHUNK scenarios at a time."""
+    from simple_mpc_tpu_torch import kernels
+
+    s, ocp = it["solver"], it["ocp"]
+    nb, nT = it["lin_args"][2].shape[:2]
+
+    def dyn_plain(_, *a):
+        return kernels.fd_dynamics_plain(ocp, *a)
+
+    return dict(
+        wide_fd_stage_linearize=(
+            "lin_args", lambda a: kernels.wide_fd_stage_linearize(s, *a),
+            lambda a: chunked(kernels._linearize_traj_plain, s, nb, *a)),
+        wide_fd_stage_eval=(
+            "eval_args", lambda a: kernels.wide_fd_stage_eval(s, *a),
+            lambda a: chunked(kernels._eval_traj_plain, s, nb, *a)),
+        wide_fd_dynamics=(
+            "dyn_args", lambda a: kernels.wide_fd_dynamics(ocp, *a),
+            lambda a: chunked(dyn_plain, s, nb * nT, *a, size=TWIN_CHUNK * nT)),
+        wide_term_linearize=(
+            "term_args", lambda a: kernels.wide_term_linearize(s, *a),
+            lambda a: kernels._linearize_term_plain(s, *a)),
+        wide_line_search_select=(
+            "sel_args", lambda a: kernels.wide_line_search_select(s, *a),
+            lambda a: kernels.line_search_select_plain(s, *a)))
+
+
+def unit_rel(a, b):
+    """ls_rel relative to max(1, the largest finite |b|): the f32 readings
+    of the full-dynamics kernels, whose gaps at a near-feasible iterate
+    (~1e-4) carry the f32 roundoff of the states they difference."""
+    e = ls_rel(a, b)
+    if not np.isfinite(e) or e == 0.0:
+        return e
+    fin = torch.isfinite(b)
+    return e * max(float(b[fin].double().abs().max()), 1e-300) / max(
+        1.0, float(b[fin].double().abs().max()))
+
+
+def outputs(r):
+    """A kernel's or twin's result as a list of tensors."""
+    if torch.is_tensor(r):
+        return [r]
+    return list(r.values()) if isinstance(r, dict) else list(r)
+
+
+def event_ms(fn):
+    """(fn(), the milliseconds of that one call by CUDA events on the
+    card, by the host clock elsewhere)."""
+    if not torch.cuda.is_available():
+        t0 = time.perf_counter()
+        return fn(), 1e3 * (time.perf_counter() - t0)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def talos_fd_check(it, f32):
+    """Each wide kernel of `talos_fd_runs` against its twin on one
+    iteration's inputs: {name: dict(rel (ls_rel, the worst output),
+    max_abs, and the select's `same_steps`)}; in f32 also the kernel's
+    ("vs64") and the f32 twin's ("twin_vs64") distance from the f64 twin on
+    the same inputs (unit_rel; the select's over the scenarios where each
+    picked the f64 twin's step size; "other_picks" counts the kernel's
+    others), and "twin_ms" the one call of the twin (event_ms).
+    "twin_vs64" is the reading behind F32_TALOS_FD_TOL."""
+    out = {}
+    for name, (key, kern, twin) in talos_fd_runs(it).items():
+        got = kern(it[key])
+        want, twin_ms = event_ms(lambda: twin(it[key]))
+        pairs = [(a, b) for a, b in zip(outputs(got), outputs(want)) if b.numel()]
+        r = dict(rel=max(ls_rel(a, b) for a, b in pairs),
+                 max_abs=max(float(finite_abs(a, b)) for a, b in pairs), twin_ms=twin_ms)
+        sel = name == "wide_line_search_select"
+        if sel:
+            r["same_steps"] = bool(torch.equal(got.alpha, want.alpha))
+        if f32:
+            w = twin(as64(it[key]))
+            for tag, res in (("vs64", got), ("twin_vs64", want)):
+                if sel:
+                    same = res.alpha.double() == w.alpha
+                    r[tag] = max(unit_rel(a[same], b[same]) for a, b in zip(res, w))
+                    if tag == "vs64":
+                        r["other_picks"] = int((~same).sum())
+                else:
+                    r[tag] = max(unit_rel(a, b) for a, b in zip(outputs(res), outputs(w))
+                                 if b.numel())
+        out[name] = r
+    return out
+
+
+def talos_fd_cases(device, dtype):
+    """The three cases of phase_talos_fd_kernels: {name: a maker of the
+    case}."""
+    return dict(
+        B128=lambda: talos_fd_case(device, dtype, B, T, seed=11),
+        cones_land=lambda: talos_fd_case(device, dtype, TALOS_FD_CONE_B, TALOS_FD_CONE_T,
+                                         seed=12, force_cone=True, land=True),
+        stream_B1=lambda: talos_fd_stream_case(device, dtype))
+
+
+def phase_talos_fd_kernels(device, ptxas_log=""):
+    """The three wide full-dynamics kernels (csrc/fulldyn_wide.cu:
+    wide_fd_stage_linearize, wide_fd_stage_eval, wide_fd_dynamics) and the
+    wide K5 and select on a full-dynamics OCP against their twins on the
+    card, f32 and f64, on one iteration's inputs (talos_fd_iteration) of
+    three cases: the Talos main path's shapes (T=100, B=128, the example's
+    problem, talos_fd_case with the feet lifted in turns), a B=2, T=10
+    problem with the two 17-row wrench cones, the landing equalities and
+    Baumgarte gains on, and B=1 at a real iterate of the Talos walking
+    stream (talos_fd_stream_case).  Gates, as ls_rel (the worst output,
+    relative to its largest entry): in f64 every kernel within 1e-10 of its
+    twin and the select's step sizes identical; in f32 every kernel within
+    F32_TALOS_FD_TOL of the twin evaluated in f64 on the same inputs (the
+    select on the scenarios where it picked the f64 twin's step size), the
+    f32 twin's own distance printed beside.  Times: CUDA-event medians of
+    the kernels at B=128 (REPS) and of their twins (the check's one call; the
+    linearization's, the candidates' and the dynamics' over TWIN_CHUNK
+    pieces); bounds by roofline at the main path's shapes; registers and
+    stack of the three kernels from the ptxas log; the device memory free
+    before and after the first launch of the wide linearization in each
+    dtype (the local memory CUDA reserves for its stack)."""
+    from simple_mpc_tpu_torch import kernels
+
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        t0 = time.perf_counter()
+        f32 = dtype == torch.float32
+        errs, abs_err, per_case = {}, {}, {}
+        torch.cuda.synchronize()
+        free0 = torch.cuda.mem_get_info(device)[0]
+        for cname, make in talos_fd_cases(device, dtype).items():
+            it = talos_fd_iteration(make(), dtype, device)
+            if cname == "B128":
+                torch.cuda.synchronize()
+                free1 = torch.cuda.mem_get_info(device)[0]
+                main = it
+            res = talos_fd_check(it, f32)
+            if cname == "B128":
+                twin_ms = {k: r["twin_ms"] for k, r in res.items()}
+            for name, r in res.items():
+                if f32:
+                    tol = F32_TALOS_FD_TOL[name]
+                    check(r["vs64"] <= tol, f"{name} {cname} f32: {r['vs64']:.3e} > {tol:.1e} "
+                          "from the f64 twin")
+                else:
+                    check(r["rel"] <= 1e-10, f"{name} {cname} f64: rel err {r['rel']:.3e}")
+                    check(r.get("same_steps", True),
+                          f"{name} {cname} f64: another step size than the twin's")
+                errs[name] = max(errs.get(name, 0.0), r["vs64"] if f32 else r["rel"])
+                abs_err[name] = max(abs_err.get(name, 0.0), r["max_abs"])
+            per_case[cname] = dict(B=it["lin_args"][1].shape[0], T=it["lin_args"][2].shape[1],
+                                   n_eq=it["ocp"].n_eq, n_in=it["ocp"].n_in, readings=res)
+        runs = talos_fd_runs(main)
+        times = {name: cuda_ms(lambda f=f, a=main[key]: f(a), REPS)
+                 for name, (key, f, _) in runs.items()}
+        # K3 (csrc/riccati.cu as it is) at nx=56, nu=22 on the kernels'
+        # linearization: timed, and in f32 its distance from its twin
+        # printed (K3 is held to its twin at other widths elsewhere)
+        lin, (Vx, Vxx) = main["lin"], main["term"]
+        reg = max(main["solver"].settings.reg_init, 50 * torch.finfo(dtype).eps)
+        k3_out = kernels.riccati_backward(lin, Vx, Vxx, reg)
+        times["riccati_backward"] = cuda_ms(
+            lambda: kernels.riccati_backward(lin, Vx, Vxx, reg), REPS)
+        if f32:
+            k3, twin_ms["riccati_backward"] = event_ms(
+                lambda: kernels.riccati_backward_plain(lin, Vx, Vxx, reg))
+            k3_rel = max(unit_rel(a, b) for a, b in zip(k3_out[:2], k3[:2]))
+            times = {name: (t, twin_ms[name]) for name, t in times.items()}
+        ocp, s = main["ocp"], main["solver"]
+        nx, nu = s.space.ndx, ocp.nu
+        n_rows = ocp._const(main["lin_args"][1])["w"].shape[0] + ocp.n_eq + ocp.n_in
+        n_term = ocp._const(main["lin_args"][1])["w_term"].shape[0] + ocp.n_term_eq
+        nc = ocp.fs * ocp.nk
+        na = len(ALPHAS)
+        k7 = k7_flops(ocp.nv, nc)
+        sel_out = runs["wide_line_search_select"][1](main["sel_args"])
+        dyn_out = runs["wide_fd_dynamics"][1](main["dyn_args"])
+        # (counted FLOPs of the whole call, bytes read and written), as
+        # phase_fd_kernels: the GN products and K7's factorizations and
+        # solves, once in primal and once along each tangent direction
+        per = dict(
+            wide_fd_stage_linearize=(
+                B * T * (2 * n_rows * (nx * nx + nu * nu + nu * nx + nx + nu)
+                         + (nx + nu + 1) * k7), nbytes((main["lin_args"], main["lin"]))),
+            wide_fd_stage_eval=(B * na * T * k7, nbytes((main["eval_args"], main["ev"]))),
+            wide_fd_dynamics=(B * T * k7, nbytes((main["dyn_args"], dyn_out))),
+            wide_term_linearize=(B * 2 * n_term * (nx * nx + nx),
+                                 nbytes((main["term_args"], main["term"]))),
+            wide_line_search_select=(0, select_bytes(main["sel_args"], sel_out)),
+            riccati_backward=(riccati_flops(B, T, nx, nu), nbytes((lin, Vx, Vxx, k3_out))))
+        bounds = {k: roofline(f, m) for k, (f, m) in per.items()}
+        name = str(dtype).replace("torch.", "")
+        out[name] = dict(errs=errs, abs_err=abs_err, times=times, bounds=bounds)
+        phase(f"talos_fd_kernels_{name}", t0, B=B, T=T, nq=ocp.nq, nv=ocp.nv, nu=nu,
+              rows=n_rows, contact_rows=nc, cases=per_case,
+              tol=F32_TALOS_FD_TOL if f32 else 1e-10, rel_err=errs, max_abs_err=abs_err,
+              ms=times, bound_ms=bounds if f32 else None,
+              device_free_gb_before_after_first_launch=[free0 / 1e9, free1 / 1e9],
+              smem_bytes_a_block=kernels.fd_smem(ocp, dtype),
+              k3_f32_unit_rel_vs_twin=k3_rel if f32 else None,
+              ptxas=ptxas_report(ptxas_log, ("fdw_linearize_kernel", "fdw_eval_kernel",
+                                             "fdw_dynamics_kernel"), wide=True)
+              if f32 else None)
+    return out
+
+
+def talos_fd_start(device, dtype):
+    """The batched solver of phase_talos_fd_batched and its start: B=128
+    Talos full-dynamics T=100 problems (the example's), warm-started from
+    the standing state and the quasistatic torques, one iteration a call,
+    mu_init 1e-6."""
+    from simple_mpc_tpu_torch.configs import make_talos_fulldynamics
+    from simple_mpc_tpu_torch.parallel import BatchedSolver, tile_problem
+    from simple_mpc_tpu_torch.solver.proxddp import ProxDDPSolver, SolverSettings
+
+    ocp, _, x0 = make_talos_fulldynamics(T, device=device, dtype=dtype)
+    xs = ocp._tensor(x0)[None, None].expand(B, T + 1, -1).clone()
+    us = ocp._tensor(standing_torques(ocp, x0))[None, None].expand(B, T, -1).clone()
+    lams = (torch.zeros((B, T, ocp.n_eq), dtype=dtype, device=device),
+            torch.zeros((B, T, ocp.n_in), dtype=dtype, device=device),
+            torch.zeros((B, ocp.n_term_eq), dtype=dtype, device=device))
+    bs = BatchedSolver(ProxDDPSolver(ocp, SolverSettings(mu_init=1e-6, max_iters=1,
+                                                         alphas=ALPHAS)))
+    return ocp, bs, tile_problem(ocp.problem, B), xs, us, lams
+
+
+def talos_fd_batched_stream(device, dtype, calls=30):
+    """(max prim_res of each call, the last result, the wall seconds of the
+    timed calls) of the phase_talos_fd_batched recipe: two warm-up calls,
+    then `calls` calls each fed the last result."""
+    ocp, bs, probs, xs, us, lams = talos_fd_start(device, dtype)
+    prims = []
+    for i in range(2 + calls):
+        if i == 2:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        res = bs.run(probs, xs, us, lams)
+        xs, us, lams = res.xs, res.us, (res.lam_eq, res.lam_in, res.lam_term)
+        prims.append(res.prim_res.max())
+    torch.cuda.synchronize()
+    return [float(p) for p in prims], res, bs, time.perf_counter() - t1
+
+
+def talos_fd_batched_setup(device):
+    """The f64 stream beside phase_talos_fd_batched's f32 one, made before
+    the path's counters are zeroed (a comparison, not the path)."""
+    return (talos_fd_batched_stream(device, torch.float64)[0],)
+
+
+def phase_talos_fd_batched(device, prims64=None):
+    """Talos full dynamics, the recipe of phase_fd_batched (B=128, T=100,
+    the example's problem: torque and joint limits, no wrench cones), f32,
+    from the standing state and the quasistatic torques, mu_init 1e-6: two
+    warm-up calls, then 30 one-iteration calls each fed the last result.
+    Gates: finite, no divergence, the last call's max prim_res < 1e-3
+    (tests/test_fulldynamics_solver.py:83), or, where the same stream in
+    f64 (`prims64`, solved on the card) also misses 1e-3, 10 % above its
+    last call.  Prints solves/s and both streams."""
+    t0 = time.perf_counter()
+    calls = 30
+    prims, res, bs, wall = talos_fd_batched_stream(device, torch.float32, calls)
+    s = {k: float(v) for k, v in bs.summary(res).items()}
+    check(torch.isfinite(res.xs).all() and torch.isfinite(res.us).all()
+          and torch.isfinite(res.Ks).all(), "talos fd batched solve: non-finite iterate")
+    check(s["any_diverged"] == 0, "talos fd batched solve: a scenario diverged")
+    lim = 1e-3 if prims64 is None or prims64[-1] < 1e-3 else 1.1 * prims64[-1]
+    check(s["max_prim"] < lim, f"talos fd batched solve: last max prim {s['max_prim']:.3e} "
+          f">= {lim:.3e}")
+    phase("talos_fd_batched", t0, B=B, T=T, calls=calls, solves_per_s=B * calls / wall,
+          ms_per_call=1e3 * wall / calls, max_prim_per_call=prims, gate=lim,
+          f64_max_prim_per_call=prims64, **s)
+
+
+def talos_fd_host_mpc(device, dtype=torch.float32):
+    """The host MPC of phase_talos_fd_mpc: `configs.talos_fd_mpc` (the
+    example's gait and MPCSettings) at T=100 in `dtype`, first solve cut to
+    FUSED_INIT_ITERS iterations, walking."""
+    from simple_mpc_tpu_torch.configs import talos_fd_mpc
+
+    mpc = talos_fd_mpc(T, device=device, dtype=dtype, init_max_iters=FUSED_INIT_ITERS)
+    check(not mpc.diverged, "talos fd MPC: initial solve diverged")
+    return mpc
+
+
+def phase_talos_fd_mpc(device):
+    """The host MPC on Talos full dynamics T=100 (examples/talos_fulldynamics.py's
+    biped gait 20/80/20/80 at 0.1 m/s and MPCSettings: T_fly 80, T_contact
+    20, apex 0.1 m, mu_init 1e-8; `init_max_iters` cut to 20), f32:
+    TALOS_FD_MPC_TICKS ticks fed their own planned next state, then 5 more
+    under the profiler.  Gates: finite plans, no divergence, and on every
+    tick the stage-0 contact wrenches (MPC.get_contact_forces(0), through
+    wide_fd_dynamics) unilateral (fz > -1e-6) with their fz summing to
+    within 35 % of m g (tests/test_fulldynamics_solver.py:102-103)."""
+    t0 = time.perf_counter()
+    mpc = talos_fd_host_mpc(device)
+    setup = time.perf_counter() - t0
+    mg = mpc.ocp_handler.model_handler.mass * 9.81
+    lat, prims, fz = [], [], []
+    for _ in range(TALOS_FD_MPC_TICKS):
+        t1 = time.perf_counter()
+        res = mpc.iterate(mpc.xs[1])
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t1)
+        check(not mpc.diverged, "talos fd MPC: a tick diverged")
+        check(bool(torch.isfinite(res.xs).all() and torch.isfinite(res.us).all()
+                   and torch.isfinite(res.Ks).all()), "talos fd MPC: non-finite plan")
+        f = mpc.get_contact_forces(0).double().cpu().numpy()
+        check(bool(np.isfinite(f).all()) and f[:, 2].min() > -1e-6,
+              f"talos fd MPC: stage-0 wrenches not unilateral: fz {f[:, 2]}")
+        check(abs(f[:, 2].sum() - mg) < 0.35 * mg,
+              f"talos fd MPC: stage-0 wrenches carry {f[:, 2].sum():.2f} N of m g = {mg:.2f} N")
+        prims.append(float(res.prim_res))
+        fz.append(float(f[:, 2].sum() / mg))
+    trace = trace_calls(lambda: mpc.iterate(mpc.xs[1]))
+    lat_ms = 1e3 * np.asarray(lat)
+    phase("talos_fd_mpc", t0, T=T, ticks=TALOS_FD_MPC_TICKS, setup_s=setup,
+          tick_p50_ms=float(np.percentile(lat_ms, 50)),
+          tick_p99_ms=float(np.percentile(lat_ms, 99)), max_prim=float(max(prims)),
+          prim_per_tick=prims, fz_sum_over_mg=[min(fz), max(fz)], tick_trace=trace)
+
+
+def quad_corner_plant(mh, device, dt=1e-3):
+    """The closed loop's simulator with the quad feet's four corner points
+    (the model handler's contact points, 0.1 x 0.075 m about each sole
+    frame) as its contacts, in place of one point at each sole: a flat foot
+    that can bear the contact moments of the MPC's 6D contacts."""
+    from simple_mpc_tpu_torch.examples.loop import foot_height
+    from simple_mpc_tpu_torch.models.model import Frame
+    from simple_mpc_tpu_torch.sim.simulator import SimSettings, Simulator
+
+    m, ids = mh.model, []
+    for i, fid in enumerate(mh.feet_frame_ids):
+        f = m.frames[fid]
+        for c, d in enumerate(mh.feet_contact_points[i]):
+            ids.append(m.add_frame(Frame(f"{f.name}_corner{c}", f.parent_joint,
+                                         np.asarray(f.R), np.asarray(f.p) + np.asarray(f.R) @ d)))
+    return Simulator(m, ids, SimSettings(dt=dt, ground_height=foot_height(mh)), device=device)
+
+
+def talos_fd_loop_run(device, dtype, corners=False, plant_dt=1e-3):
+    """The port's Talos full-dynamics example (examples/talos_fulldynamics.py:
+    T=100, the biped gait 20/80/20/80 at 0.1 m/s, apex 0.1 m, mu_init 1e-8,
+    the first solve's 100 iterations, Riccati feedback us[0] - Ks[0]
+    difference(x, xs[0]) at 1 kHz, 10 inner steps a tick) in `dtype` for
+    TALOS_FD_LOOP_TICKS ticks, on the example's plant (a point contact at
+    each sole) or with `corners` on quad_corner_plant, whose steps take
+    `plant_dt` (0.01 / plant_dt inner steps a tick, the feedback at each
+    step).  Returns the first tick whose state is not finite or whose base
+    z leaves the 0.1 m band of JAX's smoke test
+    (tests/test_examples_smoke.py:20-25; None if none), the base z range
+    and the largest |v| before it with its joint, and the host times of the
+    tick, its references and the inner step."""
+    from simple_mpc_tpu_torch.examples.loop import foot_height, run_closed_loop
+    from simple_mpc_tpu_torch.examples.talos_fulldynamics import setup
+    from simple_mpc_tpu_torch.examples.talos_kinodynamics import WALK, biped
+    from simple_mpc_tpu_torch.sim.simulator import SimSettings, Simulator
+
+    mpc, mh = setup(TALOS_FD_LOOP_T, device, dtype)
+    m = mh.model
+    plant = (quad_corner_plant(mh, device, plant_dt) if corners else
+             Simulator(m, mh.feet_frame_ids, SimSettings(dt=plant_dt,
+                                                         ground_height=foot_height(mh)),
+                       device=device))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        log = run_closed_loop(mpc, mh, id_solver=None, n_steps=TALOS_FD_LOOP_TICKS,
+                              n_simu=round(0.01 / plant_dt), walk_velocity=WALK,
+                              gait=biped(mh.feet_names), log_every=0, plant=plant)
+    q, v = np.stack(log["q"]), np.stack(log["v"])
+    bad = ~(np.isfinite(q).all(axis=1) & np.isfinite(v).all(axis=1)
+            & (np.abs(q[:, 2] - q[0, 2]) < 0.1))
+    first = int(np.argmax(bad)) if bad.any() else None
+    ok = slice(0, max(first, 1)) if first is not None else slice(None)
+    i = int(np.abs(v[ok]).max(axis=0).argmax())
+
+    def p(key, q_):
+        return float(np.percentile(1e3 * np.asarray(log[key])[ok], q_))
+
+    return dict(T=TALOS_FD_LOOP_T, dtype=str(dtype).replace("torch.", ""),
+                plant="quad corners" if corners else "soles", plant_dt=plant_dt,
+                ticks=TALOS_FD_LOOP_TICKS,
+                first_tick_out=first, base_z=[float(q[ok, 2].min()), float(q[ok, 2].max())],
+                max_abs_v=float(np.abs(v[ok]).max()),
+                max_abs_v_at=m.joint_names[i - 5] if i >= 6 else f"base {i}",
+                solver_warnings=sum("non-finite" in str(w.message) for w in caught),
+                tick_p50_ms=p("solve_time", 50), refs_p50_ms=p("refs_time", 50),
+                inner_step_p50_ms=p("inner_time", 50))
+
+
+def phase_talos_fd_closed_loop(device):
+    """A reading, not a gated path: the Talos full-dynamics example in
+    closed loop at its own T=100 for TALOS_FD_LOOP_TICKS ticks, in f32 and
+    f64, on its plant and on quad_corner_plant, and in f64 on its plant
+    with steps of 0.1 ms (talos_fd_loop_run).  On the example's plant it
+    leaves the band within a few ticks in either precision (PERF.md,
+    ROADMAP Queue 3): the sole points let the feet roll under the ankle
+    torques of the 6D-contact plan, and the Riccati feedback rings on the
+    ankle-roll joints.  Nothing here gates; the phase fails only if a run
+    raises."""
+    t0 = time.perf_counter()
+    runs = [talos_fd_loop_run(device, dtype, corners)
+            for corners in (False, True) for dtype in (torch.float32, torch.float64)]
+    runs.append(talos_fd_loop_run(device, torch.float64, plant_dt=1e-4))
+    phase("talos_fd_closed_loop", t0, gated=False, runs=runs)
+
+
 def drive_main_path(device):
-    """The main paths (phases 4-10, 12, 14-16, 18 and 22-23), each with the
+    """The main paths (phases 4-10, 12, 14-16, 18, 23-24, 26 and 27), each with the
     launch counters zeroed just before it (after its set-up) and read just
     after; returns the launches of each kernel summed over them."""
     from simple_mpc_tpu_torch import kernels
@@ -2846,7 +3467,10 @@ def drive_main_path(device):
                              ("talos_latency", phase_latency, talos_latency_setup),
                              ("fd_fused", phase_fd_fused,
                               lambda d: (reference_prims(fd_fused_engine, d),)),
-                             ("fd_latency", phase_latency, fd_latency_setup)):
+                             ("fd_latency", phase_latency, fd_latency_setup),
+                             ("talos_fd_batched", phase_talos_fd_batched,
+                              talos_fd_batched_setup),
+                             ("talos_fd_mpc", phase_talos_fd_mpc, None)):
         args = setup(device) if setup else ()
         kernels.reset_launches()
         run(device, *args)
@@ -2867,7 +3491,8 @@ def drive_main_path(device):
 
 PHASES = ("kernels", "fd_kernels", "id_sim_kernels", "fixture", "talos_kernels",
           "talos_fixture", "talos_id_sim_kernels", "talos_closed_loop", "line_search_kernels",
-          "tick_traces", "talos_tick_kernels", "k6_wide_kernels", "talos_fused", "fd_fused")
+          "tick_traces", "talos_tick_kernels", "k6_wide_kernels", "talos_fused", "fd_fused",
+          "talos_fd_kernels", "talos_fd_batched", "talos_fd_mpc", "talos_fd_closed_loop")
 
 
 def main():
@@ -2915,7 +3540,12 @@ def main():
                     k6_wide_kernels=phase_k6_wide_kernels,
                     talos_fused=lambda d: (phase_talos_fused(d),
                                            phase_latency(d, *talos_latency_setup(d))),
-                    fd_fused=lambda d: (phase_fd_fused(d), phase_latency(d, *fd_latency_setup(d))))
+                    fd_fused=lambda d: (phase_fd_fused(d), phase_latency(d, *fd_latency_setup(d))),
+                    talos_fd_kernels=lambda d: phase_talos_fd_kernels(d, info["log"]),
+                    talos_fd_batched=lambda d: phase_talos_fd_batched(
+                        d, *talos_fd_batched_setup(d)),
+                    talos_fd_mpc=phase_talos_fd_mpc,
+                    talos_fd_closed_loop=phase_talos_fd_closed_loop)
         for name in phases:
             runs[name](device)
         print(smi, flush=True)
@@ -2932,7 +3562,9 @@ def main():
     lsres = phase_line_search_kernels(device)
     tickres = phase_talos_tick_kernels(device)
     phase_k6_wide_kernels(device)
+    fdwres = phase_talos_fd_kernels(device, info["log"])
     launches = drive_main_path(device)
+    phase_talos_fd_closed_loop(device)
 
     replaces = dict(
         stage_linearize=("linearize.cu", "simple_mpc_tpu/solver/proxddp.py:271"),
@@ -2961,6 +3593,9 @@ def main():
         state_difference=("linesearch.cu", "simple_mpc_tpu/solver/proxddp.py:527"),
         wide_line_search_select=("linesearch_wide.cu", "simple_mpc_tpu/solver/proxddp.py:529"),
         wide_tick_refs=("tick_wide.cu", "simple_mpc_tpu/mpc/fused.py:175"),
+        wide_fd_stage_linearize=("fulldyn_wide.cu", "simple_mpc_tpu/ocp/fulldynamics.py:194"),
+        wide_fd_stage_eval=("fulldyn_wide.cu", "simple_mpc_tpu/solver/proxddp.py:183"),
+        wide_fd_dynamics=("fulldyn_wide.cu", "simple_mpc_tpu/ops/soa_dyn.py:199"),
     )
     # line_search_select also replaces the terminal AL cost and merit
     # (:207-217) and prim and the BCL update (:546-600)
@@ -2970,7 +3605,7 @@ def main():
     # K3 and K4 are Go2's, qp_admm Go2's; the Talos phases' are printed
     # there); the closed loops' kernels at B=1
     checked = (kres["float32"], fdres["float32"], talres["float32"], lsres["float32"],
-               tickres["float32"])
+               tickres["float32"], fdwres["float32"])
     loops = (idres["float32"], talidres["float32"])
     f32 = {k: {n: next(c[n][k] for c in checked if k in c["errs"])
                for n in ("abs_err", "times", "bounds")}

@@ -3,8 +3,9 @@
 Port of the Go2 kinodynamics and full-dynamics entries and the Talos
 kinodynamics entry of `simple_mpc_tpu.configs` (the settings dictionaries
 of examples/go2_kinodynamics.py, examples/go2_fulldynamics.py and the
-Talos parity fixture), the fused-tick engines of the JAX package's bench
-(`bench.py` `_make_fused`), and fused-tick engines of the Talos
+Talos parity fixture), the Talos full-dynamics settings of
+examples/talos_fulldynamics.py, the fused-tick engines of the JAX package's
+bench (`bench.py` `_make_fused`), and fused-tick engines of the Talos
 kinodynamics and Go2 full-dynamics examples.
 """
 from __future__ import annotations
@@ -154,6 +155,46 @@ def make_go2_fulldynamics(T: int = 100, device="cuda", dtype=torch.float64,
     return ocp, mh, x0
 
 
+def talos_fulldynamics_config(mh: RobotModelHandler) -> dict:
+    """examples/talos_fulldynamics.py:18-34 settings: joint torques on the
+    22 actuated joints, two 6D quad feet, torque and joint limits on, the
+    wrench cones and landing constraints off, no Baumgarte correction."""
+    model = mh.model
+    nv = model.nv
+    w_x = np.array([0, 0, 100, 100, 100, 100] + [10.0] * (nv - 6)
+                   + [10, 10, 10, 100, 100, 100] + [1.0] * (nv - 6))
+    return dict(
+        timestep=0.01, w_x=w_x, w_u=np.ones(nv - 6) * 1e-4,
+        w_cent=np.concatenate([np.zeros(3), [0.1, 0.1, 1.0]]),
+        w_forces=np.ones(6) * 1e-5, w_frame=np.ones(6) * 1000.0,
+        gravity=np.array([0, 0, -9.81]), force_size=6,
+        Kp_correction=np.zeros(6), Kd_correction=np.zeros(6),
+        umin=-model.effort_limit[6:], umax=model.effort_limit[6:],
+        qmin=model.lower_limit[7:], qmax=model.upper_limit[7:],
+        mu=0.8, Lfoot=0.1, Wfoot=0.075,
+        torque_limits=True, kinematics_limits=True,
+        force_cone=False, land_cstr=False,
+    )
+
+
+def make_talos_fulldynamics(T: int = 100, device="cuda", dtype=torch.float64,
+                            force_cone=False):
+    """Talos full dynamics (23 joints, two 6D quad feet, nq=29, nv=28, 22
+    joint torques), horizon T, at half_sitting, with its problem built on
+    `device` in `dtype` as examples/talos_fulldynamics.py `main` builds it.
+    `force_cone` switches on the two 17-row wrench cones (off in the
+    example)."""
+    from .ocp.fulldynamics import FullDynamicsOCP
+
+    mh = talos_handler()
+    cfg = talos_fulldynamics_config(mh)
+    cfg["force_cone"] = force_cone
+    ocp = FullDynamicsOCP(cfg, mh, device, dtype)
+    x0 = np.asarray(mh.reference_state)
+    ocp.create_problem(x0, T, 6, -9.81, False)
+    return ocp, mh, x0
+
+
 def _walking(mpc, plan, walk, mu_init, parallel):
     """`mpc` with its tick solver one iteration with `mu_init`, serial
     Riccati (K3) or with `parallel` the associative scan (K6), the cyclic
@@ -257,3 +298,18 @@ def make_go2_fd_fused(T: int = 50, device="cuda", dtype=torch.float32, parallel=
     `parallel=True` the B=1 latency configuration).  Returns (fused,
     carry)."""
     return _fused(go2_fd_mpc(T, device, dtype, parallel, force_cone, gait, **mpc_settings))
+
+
+def talos_fd_mpc(T: int = 100, device="cuda", dtype=torch.float32, gait=None,
+                 **mpc_settings):
+    """The host MPC of examples/talos_fulldynamics.py (its `setup`: Talos
+    full dynamics with the example's MPCSettings, T_fly 80, T_contact 20,
+    apex 0.1 m, mu_init 1e-8, TOL 1e-4), walking the biped gait
+    20/80/20/80 at 0.1 m/s, one iteration a tick on serial Riccati.
+    `gait` and `mpc_settings` as in `talos_mpc`."""
+    from .examples.talos_fulldynamics import setup
+    from .examples.talos_kinodynamics import WALK, biped
+
+    mpc, mh = setup(T, device, dtype, **mpc_settings)
+    return _walking(mpc, biped(mh.feet_names) if gait is None else gait, WALK,
+                    mpc.settings.mu_init, False)

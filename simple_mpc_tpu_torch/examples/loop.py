@@ -4,8 +4,10 @@ Port of the JAX package's `examples/loop.py` (the reference examples'
 control architecture, examples/go2_kinodynamics.py:206-295): the MPC tick at
 100 Hz, the inner loop at 1 kHz with state/acceleration interpolation,
 low-level torques from the inverse-dynamics QP (kinodynamics) or Riccati
-feedback u = us[0] - K0 diff(x, xs[0]) (full dynamics), and the
-in-framework rigid-contact simulator as the plant.
+feedback u = us[0] - K0 difference(x, xs[0]) (full dynamics; the
+reference's talos_fulldynamics.py:203-205, where the JAX package's loop
+swaps the difference's arguments), and the in-framework rigid-contact
+simulator as the plant.
 
 On the card the state, the torques and the ID's warm start stay on the
 device between the ID and the simulator: an inner step launches the
@@ -34,22 +36,35 @@ def foot_height(mh) -> float:
     return float(np.mean(fp[:, 2, 0].numpy()))
 
 
+def riccati_feedback(mpc, model, q, v):
+    """The full-dynamics inner loop's torques at the measured (q, v): the
+    reference's u = us[0] - K0 difference(x, xs[0]).  The solver's gains
+    act as u = us + K difference(xs, x) (its rollout's convention), so
+    this is negative feedback; the JAX package's loop takes the difference
+    the other way round, which feeds the error back with the wrong sign."""
+    dx = soa.state_difference(model, torch.cat([q, v])[:, None], mpc.xs[0][:, None])[:, 0]
+    return mpc.us[0] - mpc.Ks[0] @ dx
+
+
 def run_closed_loop(mpc, mh, *, id_solver=None, friction=None, n_steps=50, n_simu=10,
-                    walk_velocity=None, gait=None, log_every=10):
+                    walk_velocity=None, gait=None, log_every=10, plant=None):
     """Run the MPC + inner loop + simulator closed loop on the MPC's device
     and dtype; returns the log (host numpy per tick: q, v, f, and on the
     host clock the MPC iteration `solve_time`, the tick's references and
     interpolated targets `refs_time`, and the inner steps' mean
     `inner_time`, up to the tick's one host copy).  The n_simu inner
     steps' targets are interpolated in one lane-batched call a tick.
-    `id_solver=None` selects Riccati feedback (full dynamics)."""
+    `id_solver=None` selects Riccati feedback (full dynamics).  `plant`
+    replaces the simulator (the same `step(q, v, tau)`), as in the JAX
+    package's loop."""
     model = mh.model
     nq, nv = model.nq, model.nv
     interp = Interpolator(model)
     oh = mpc.ocp_handler
     device, dtype = mpc.xs.device, mpc.xs.dtype
-    sim = Simulator(model, mh.feet_frame_ids,
-                    SimSettings(dt=1e-3, ground_height=foot_height(mh)), device=device)
+    sim = plant if plant is not None else Simulator(
+        model, mh.feet_frame_ids, SimSettings(dt=1e-3, ground_height=foot_height(mh)),
+        device=device)
     if gait is not None:
         mpc.generate_cycle_horizon(gait)
     if walk_velocity is not None:
@@ -84,9 +99,7 @@ def run_closed_loop(mpc, mh, *, id_solver=None, friction=None, n_steps=50, n_sim
                 id_solver.set_target(x_i[sub, :nq], x_i[sub, nq:], a_i[sub], contacts_t, f_t)
                 tau = id_solver.solve(step * 0.01 + delays[sub], q, v)
             else:
-                dx = soa.state_difference(model, mpc.xs[0][:, None],
-                                          torch.cat([q, v])[:, None])[:, 0]
-                tau = mpc.us[0] - mpc.Ks[0] @ dx
+                tau = riccati_feedback(mpc, model, q, v)
             if friction is not None:
                 tau = friction.compute_friction(v[6:], tau)
             q, v, fw = sim.step(q, v, tau)

@@ -35,6 +35,14 @@ K1+K2, K1 and K5 for what csrc/linearize.cu refuses: 6D contacts, more
 than 16 joints or more than 64 tangent directions (Talos kinodynamics);
 `stage_route` decides, and `stage_linearize`, `stage_eval` and
 `term_linearize` hand a wide OCP's CUDA tensors to them.
+The wide full-dynamics kernels `wide_fd_stage_linearize`,
+`wide_fd_stage_eval` and `wide_fd_dynamics` (csrc/fulldyn_wide.cu, K7 of
+csrc/fulldyn_wide.cuh) are K7+K1+K2, K7+K1 and K7 for what csrc/fulldyn.cu
+refuses: 6D LOCAL_WORLD_ALIGNED contacts, more than 16 joints or more than
+64 tangent directions (Talos full dynamics); `stage_route` decides, and
+`fd_stage_linearize`, `fd_stage_eval` and `fd_dynamics` hand such an OCP's
+CUDA tensors to them; its terminal Jacobian and line-search select go to
+`wide_term_linearize` and `wide_line_search_select`.
 K9 `tick_refs` (csrc/tick.cu) replaces the bookkeeping of
 `simple_mpc_tpu/mpc/fused.py` `FusedMPC._step` before the solve;
 `wide_tick_refs` (csrc/tick_wide.cu, tick.cu compiled again over
@@ -100,8 +108,8 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("riccati.cu", "parallel_riccati.cu", "rollout.cu", "linearize.cu", "fulldyn.cu",
            "tick.cu", "qp.cu", "id.cu", "sim.cu", "linearize_wide.cu", "acc.cu", "acc_wide.cu",
            "id_wide.cu", "sim_wide.cu", "linesearch.cu", "linesearch_wide.cu",
-           "tick_wide.cu")
-HEADERS = ("stage.cuh", "fulldyn.cuh", "stage_wide.cuh")
+           "tick_wide.cu", "fulldyn_wide.cu")
+HEADERS = ("stage.cuh", "fulldyn.cuh", "stage_wide.cuh", "fulldyn_wide.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # units built without FMA contraction, so that they round as the plain
@@ -185,6 +193,9 @@ def _library() -> ctypes.CDLL:
             wide_stage_linearize=[P] * 14 + [I] * 2 + [P] * 9,
             wide_stage_eval=[P] * 13 + [I] * 3 + [P] * 5,
             wide_term_linearize=[P] * 7 + [I] + [P] * 3,
+            wide_fd_stage_linearize=[P] * 15 + [I] * 2 + [P] * 9,
+            wide_fd_stage_eval=[P] * 14 + [I] * 3 + [P] * 5,
+            wide_fd_dynamics=[P] * 7 + [I] + [P] * 3,
             tick_refs=[P] * 12 + [I] * 6 + [D, D] + [P] * 8,
             wide_tick_refs=[P] * 12 + [I] * 6 + [D, D] + [P] * 8,
             qp_admm=[P] * 7 + [I] * 4 + [D] * 3 + [P] * 5,
@@ -517,6 +528,7 @@ MAX_FEET = 8  # stage.cuh kMaxK
 LIN_THREADS = 64  # linearize.cu kLinThreads: one thread a tangent direction
 WIDE_MAX_JOINTS = 32  # stage_wide.cuh SMPC_MAX_JOINTS
 WIDE_THREADS = 128  # linearize_wide.cu kWideThreads: one thread a tangent direction
+FD_WIDE_ROWS = 24  # fulldyn_wide.cuh kFdWideRows: contact rows (fs * nk) of the wide K7
 
 
 def _dims_fields(max_joints):
@@ -576,11 +588,14 @@ def _require_stage_layout(ocp):
 
 
 def stage_route(ocp) -> str:
-    """Which kernels take the kinodynamics stage of `ocp` on the card:
-    "narrow" (csrc/linearize.cu) for what `_require_stage_layout` accepts,
-    "wide" (csrc/linearize_wide.cu) for force size 3 or 6, at most
-    WIDE_MAX_JOINTS joints, MAX_FEET feet and WIDE_THREADS tangent
-    directions (ndx + nu).  Raises NotImplementedError beyond those."""
+    """Which kernels take the stage of `ocp` on the card: "narrow"
+    (csrc/linearize.cu, or csrc/fulldyn.cu for a full-dynamics OCP) for
+    what `_require_stage_layout` accepts, "wide" (csrc/linearize_wide.cu,
+    or csrc/fulldyn_wide.cu) for force size 3 or 6, at most
+    WIDE_MAX_JOINTS joints, MAX_FEET feet, WIDE_THREADS tangent directions
+    (ndx + nu) and, on full dynamics, FD_WIDE_ROWS contact rows (8 point
+    feet, or 4 feet with 6D contacts).  Raises NotImplementedError beyond
+    those."""
     _require_body_layout(ocp.model, ocp.nk, max_joints=WIDE_MAX_JOINTS)
     ndir = 2 * ocp.nv + ocp.nu
     if ocp.fs == 3 and ocp.model.njoints <= MAX_JOINTS and ndir <= LIN_THREADS:
@@ -590,6 +605,10 @@ def stage_route(ocp) -> str:
     if ndir > WIDE_THREADS:
         raise NotImplementedError(f"the wide stage kernels take at most {WIDE_THREADS} "
                                   f"tangent directions (ndx + nu), got {ndir}")
+    if getattr(ocp, "full_dynamics", False) and ocp.fs * ocp.nk > FD_WIDE_ROWS:
+        raise NotImplementedError(
+            f"the wide full-dynamics kernels take at most {FD_WIDE_ROWS} contact rows "
+            f"(force size x feet), got {ocp.fs} x {ocp.nk}")
     return "wide"
 
 
@@ -603,8 +622,6 @@ def _stage_consts(ocp, dtype, device, wide=False):
     if hit is not None and hit[0] is ocp and hit[1] is tab:
         return hit[2], hit[3]
     if wide:
-        if ocp.full_dynamics:
-            raise ValueError("the wide stage kernels take a kinodynamics OCP")
         stage_route(ocp)
     else:
         _require_stage_layout(ocp)
@@ -670,26 +687,26 @@ def _pack_consts(dims: dict, blocks: dict, dtype, device, fields=_DIMS_FIELDS):
     return buf, dims_c
 
 
-def _stage_kernel(ocp, fd: bool, name: str) -> str:
+def _stage_kernel(ocp, fd: bool, name: str, wide: bool = False) -> str:
     """The C name of a stage kernel, refusing an OCP of the other
     formulation (the two stages read different constants)."""
     if ocp.full_dynamics != fd:
-        raise ValueError(f"{'fd_' if fd else ''}{name} takes a "
+        raise ValueError(f"{'wide_' if wide else ''}{'fd_' if fd else ''}{name} takes a "
                          f"{'full-dynamics' if fd else 'kinodynamics'} OCP, "
                          f"got {type(ocp).__name__}")
-    return f"fd_{name}" if fd else name
+    return f"{'wide_' if wide else ''}{'fd_' if fd else ''}{name}"
 
 
-def _stage_params(sp, nb, T, nk, nx, nu, dtype, device, fd=False, wide=False):
+def _stage_params(sp, nb, T, nk, nx, nu, dtype, device, fd=False, wide=False, fs=3):
     """Pointers to the stage parameters the kernels read, checked and
-    contiguous; the full-dynamics stage also reads f_ref, the wide stage
-    foot_ref_R."""
+    contiguous; the full-dynamics stage also reads f_ref (nk, fs), the wide
+    stage foot_ref_R."""
     shapes = dict(contact_active=(nb, T, nk))
     if wide:
         shapes["foot_ref_R"] = (nb, T, nk, 3, 3)
     shapes.update(foot_ref_p=(nb, T, nk, 3), x_ref=(nb, T, nx), u_ref=(nb, T, nu))
     if fd:
-        shapes["f_ref"] = (nb, T, nk, 3)
+        shapes["f_ref"] = (nb, T, nk, fs)
     shapes["land"] = (nb, T, nk)
     t = _check({k: getattr(sp, k) for k in shapes}, shapes, dtype, device)
     return [t[k].data_ptr() for k in shapes]
@@ -762,6 +779,7 @@ def _linearize_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu):
 def _linearize_cuda(solver, sp, xs, us, lam_eq, lam_in, mu, fd=False, wide=False):
     ocp = solver.ocp
     dtype, device = xs.dtype, xs.device
+    name = _stage_kernel(ocp, fd, "stage_linearize", wide)
     C, dims = _stage_consts(ocp, dtype, device, wide)
     nb, T = us.shape[:2]
     nx, nu, ndx = solver.space.nx, ocp.nu, solver.space.ndx
@@ -769,13 +787,14 @@ def _linearize_cuda(solver, sp, xs, us, lam_eq, lam_in, mu, fd=False, wide=False
                   lam_in=(nb, T, ocp.n_in), mu=(nb,))
     t = _check(dict(xs=xs, us=us, lam_eq=lam_eq, lam_in=lam_in, mu=mu), shapes,
                dtype, device)
-    params = _stage_params(sp, nb, T, ocp.nk, nx, nu, dtype, device, fd, wide)
+    params = _stage_params(sp, nb, T, ocp.nk, nx, nu, dtype, device, fd, wide, ocp.fs)
+    if wide and fd:
+        _require_fd_smem(ocp, dtype, device)
     su = solver._su(xs)
     out = dict(A=(nb, T, ndx, ndx), B=(nb, T, ndx, nu), d=(nb, T, ndx),
                qx=(nb, T, ndx), qu=(nb, T, nu), Qxx=(nb, T, ndx, ndx),
                Quu=(nb, T, nu, nu), Qux=(nb, T, nu, ndx))
     out = {k: torch.empty(v, dtype=dtype, device=device) for k, v in out.items()}
-    name = "wide_stage_linearize" if wide else _stage_kernel(ocp, fd, "stage_linearize")
     fn = getattr(_library(), f"smpc_{name}_{_suffix(dtype)}")
     with torch.cuda.device(device):
         err = fn(ctypes.addressof(dims), C.data_ptr(), t["xs"].data_ptr(),
@@ -852,6 +871,7 @@ def _eval_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu):
 def _eval_cuda(solver, sp, xs, us, lam_eq, lam_in, mu, fd=False, wide=False):
     ocp = solver.ocp
     dtype, device = xs.dtype, xs.device
+    name = _stage_kernel(ocp, fd, "stage_eval", wide)
     C, dims = _stage_consts(ocp, dtype, device, wide)
     nb, na, T = us.shape[:3]
     nx, nu, ndx = solver.space.nx, ocp.nu, solver.space.ndx
@@ -859,11 +879,10 @@ def _eval_cuda(solver, sp, xs, us, lam_eq, lam_in, mu, fd=False, wide=False):
                   lam_eq=(nb, T, ocp.n_eq), lam_in=(nb, T, ocp.n_in), mu=(nb,))
     t = _check(dict(xs=xs, us=us, lam_eq=lam_eq, lam_in=lam_in, mu=mu), shapes,
                dtype, device)
-    params = _stage_params(sp, nb, T, ocp.nk, nx, nu, dtype, device, fd, wide)
+    params = _stage_params(sp, nb, T, ocp.nk, nx, nu, dtype, device, fd, wide, ocp.fs)
     n = nb * na
     out = [torch.empty(s, dtype=dtype, device=device)
            for s in ((n, T), (n, T, ocp.n_eq), (n, T, ocp.n_in), (n, T, ndx))]
-    name = "wide_stage_eval" if wide else _stage_kernel(ocp, fd, "stage_eval")
     fn = getattr(_library(), f"smpc_{name}_{_suffix(dtype)}")
     with torch.cuda.device(device):
         err = fn(ctypes.addressof(dims), C.data_ptr(), t["xs"].data_ptr(),
@@ -915,14 +934,36 @@ wide_stage_eval.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def fd_smem(ocp, dtype) -> int:
+    """Bytes of dynamic shared memory a block of `wide_fd_stage_linearize`
+    takes: the columns of ws*Jr and Jgap and the primal rows,
+    ((nr + ndx) ndir + nr + ndx) scalars (csrc/fulldyn_wide.cu)."""
+    ndx = 2 * ocp.nv
+    nr = int(ocp._const(torch.empty(0, dtype=torch.float64))["w"].shape[0]) + ocp.n_eq + ocp.n_in
+    return ((nr + ndx) * (ndx + ocp.nu) + nr + ndx) * (torch.finfo(dtype).bits // 8)
+
+
+def _require_fd_smem(ocp, dtype, device):
+    """Refuse, before the launch, a wide full-dynamics linearization whose
+    shared memory a block exceeds the device's opt-in maximum."""
+    need, limit = fd_smem(ocp, dtype), smem_optin(device)
+    if need > limit:
+        raise NotImplementedError(
+            f"wide_fd_stage_linearize needs {need} bytes of shared memory a block in "
+            f"{dtype}; the device allows {limit}")
+
+
 def fd_stage_linearize(solver, sp, xs, us, lam_eq, lam_in, mu):
     """K7 + K1 + K2: `stage_linearize`'s contract on a FullDynamicsOCP
     (stage params with f_ref).  The twin is the same `torch.func` sweep
-    over `FullDynamicsOCP.stage_eval_soa`."""
+    over `FullDynamicsOCP.stage_eval_soa`.  An OCP that `stage_route` sends to
+    the wide unit goes to `wide_fd_stage_linearize` on the card."""
     dev = xs.device
     if dev.type == "cpu":
         return _linearize_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu)
     if dev.type == "cuda":
+        if stage_route(solver.ocp) == "wide":
+            return wide_fd_stage_linearize(solver, sp, xs, us, lam_eq, lam_in, mu)
         out = _linearize_cuda(solver, sp, xs, us, lam_eq, lam_in, mu, fd=True)
         fd_stage_linearize.launches += 1
         return out
@@ -932,13 +973,36 @@ def fd_stage_linearize(solver, sp, xs, us, lam_eq, lam_in, mu):
 fd_stage_linearize.launches = 0
 
 
+def wide_fd_stage_linearize(solver, sp, xs, us, lam_eq, lam_in, mu):
+    """K7 + K1 + K2 at wide shapes (csrc/fulldyn_wide.cu):
+    `fd_stage_linearize`'s contract for 6D contacts, up to WIDE_MAX_JOINTS
+    joints, WIDE_THREADS tangent directions and FD_WIDE_ROWS contact rows;
+    the stage params' foot_ref_R is read.  On the card a problem whose
+    shared memory a block (`fd_smem`) exceeds the device's opt-in maximum
+    raises NotImplementedError before the launch."""
+    dev = xs.device
+    if dev.type == "cpu":
+        return _linearize_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu)
+    if dev.type == "cuda":
+        out = _linearize_cuda(solver, sp, xs, us, lam_eq, lam_in, mu, fd=True, wide=True)
+        wide_fd_stage_linearize.launches += 1
+        return out
+    raise RuntimeError(f"wide_fd_stage_linearize: no kernel for device {dev}")
+
+
+wide_fd_stage_linearize.launches = 0
+
+
 def fd_stage_eval(solver, sp, xs, us, lam_eq, lam_in, mu):
     """K7 + K1 in primal mode on the candidates: `stage_eval`'s contract on
-    a FullDynamicsOCP."""
+    a FullDynamicsOCP; `wide_fd_stage_eval` for what `stage_route` sends to
+    the wide unit."""
     dev = xs.device
     if dev.type == "cpu":
         return _eval_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu)
     if dev.type == "cuda":
+        if stage_route(solver.ocp) == "wide":
+            return wide_fd_stage_eval(solver, sp, xs, us, lam_eq, lam_in, mu)
         out = _eval_cuda(solver, sp, xs, us, lam_eq, lam_in, mu, fd=True)
         fd_stage_eval.launches += 1
         return out
@@ -946,6 +1010,22 @@ def fd_stage_eval(solver, sp, xs, us, lam_eq, lam_in, mu):
 
 
 fd_stage_eval.launches = 0
+
+
+def wide_fd_stage_eval(solver, sp, xs, us, lam_eq, lam_in, mu):
+    """K7 + K1 on the candidates at wide shapes (csrc/fulldyn_wide.cu):
+    `fd_stage_eval`'s contract."""
+    dev = xs.device
+    if dev.type == "cpu":
+        return _eval_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu)
+    if dev.type == "cuda":
+        out = _eval_cuda(solver, sp, xs, us, lam_eq, lam_in, mu, fd=True, wide=True)
+        wide_fd_stage_eval.launches += 1
+        return out
+    raise RuntimeError(f"wide_fd_stage_eval: no kernel for device {dev}")
+
+
+wide_fd_stage_eval.launches = 0
 
 
 def fd_dynamics_plain(ocp, x, u, p):
@@ -957,32 +1037,40 @@ def fd_dynamics_plain(ocp, x, u, p):
     return ddq.T, f.permute(2, 0, 1)
 
 
-def _fd_dynamics_cuda(ocp, x, u, p):
+def _fd_dynamics_cuda(ocp, x, u, p, wide=False):
     dtype, device = x.dtype, x.device
-    C, dims = _stage_consts(ocp, dtype, device)
+    name = _stage_kernel(ocp, True, "dynamics", wide)
+    C, dims = _stage_consts(ocp, dtype, device, wide)
     n = x.shape[0]
-    shapes = dict(x=(n, ocp.nq + ocp.nv), u=(n, ocp.nu), active=(n, ocp.nk),
-                  foot_ref_p=(n, ocp.nk, 3))
-    t = _check(dict(x=x, u=u, active=p.contact_active, foot_ref_p=p.foot_ref_p), shapes,
-               dtype, device)
+    shapes = dict(x=(n, ocp.nq + ocp.nv), u=(n, ocp.nu), active=(n, ocp.nk))
+    tensors = dict(x=x, u=u, active=p.contact_active)
+    if wide:
+        shapes["foot_ref_R"] = (n, ocp.nk, 3, 3)
+        tensors["foot_ref_R"] = p.foot_ref_R
+    shapes["foot_ref_p"] = (n, ocp.nk, 3)
+    tensors["foot_ref_p"] = p.foot_ref_p
+    t = _check(tensors, shapes, dtype, device)
     ddq = torch.empty((n, ocp.nv), dtype=dtype, device=device)
-    f = torch.empty((n, ocp.nk, 3), dtype=dtype, device=device)
-    fn = getattr(_library(), f"smpc_{_stage_kernel(ocp, True, 'dynamics')}_{_suffix(dtype)}")
+    f = torch.empty((n, ocp.nk, ocp.fs if wide else 3), dtype=dtype, device=device)
+    fn = getattr(_library(), f"smpc_{name}_{_suffix(dtype)}")
     with torch.cuda.device(device):
         err = fn(ctypes.addressof(dims), C.data_ptr(), *[t[k].data_ptr() for k in shapes],
                  n, ddq.data_ptr(), f.data_ptr(), _stream(device))
-    _raise_on(err, "fd_dynamics")
+    _raise_on(err, name)
     return ddq, f
 
 
 def fd_dynamics(ocp, x, u, p):
     """K7: the constrained dynamics of a FullDynamicsOCP on N lanes.
     x (N,nx), u (N,nu), p stage params with leading N.  Returns ddq (N,nv)
-    and the contact forces (N,nk,3)."""
+    and the contact forces (N,nk,fs); `wide_fd_dynamics` for what
+    `stage_route` sends to the wide unit."""
     dev = x.device
     if dev.type == "cpu":
         return fd_dynamics_plain(ocp, x, u, p)
     if dev.type == "cuda":
+        if stage_route(ocp) == "wide":
+            return wide_fd_dynamics(ocp, x, u, p)
         out = _fd_dynamics_cuda(ocp, x, u, p)
         fd_dynamics.launches += 1
         return out
@@ -990,6 +1078,22 @@ def fd_dynamics(ocp, x, u, p):
 
 
 fd_dynamics.launches = 0
+
+
+def wide_fd_dynamics(ocp, x, u, p):
+    """K7 at wide shapes (csrc/fulldyn_wide.cu): `fd_dynamics`' contract;
+    the params' foot_ref_R is read (the 6D Baumgarte anchors)."""
+    dev = x.device
+    if dev.type == "cpu":
+        return fd_dynamics_plain(ocp, x, u, p)
+    if dev.type == "cuda":
+        out = _fd_dynamics_cuda(ocp, x, u, p, wide=True)
+        wide_fd_dynamics.launches += 1
+        return out
+    raise RuntimeError(f"wide_fd_dynamics: no kernel for device {dev}")
+
+
+wide_fd_dynamics.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1117,7 +1221,7 @@ def term_linearize(solver, x, tp, lam_term, mu):
     if dev.type == "cpu":
         return _linearize_term_plain(solver, x, tp, lam_term, mu)
     if dev.type == "cuda":
-        if not solver.ocp.full_dynamics and stage_route(solver.ocp) == "wide":
+        if stage_route(solver.ocp) == "wide":
             return wide_term_linearize(solver, x, tp, lam_term, mu)
         out = _term_cuda(solver, x, tp, lam_term, mu)
         term_linearize.launches += 1
@@ -1170,15 +1274,7 @@ class LineSearch(NamedTuple):
     dx0: torch.Tensor  # (B, ndx) difference(xs[:, 0], x0), the next initial gap
 
 
-def _ls_route(ocp) -> str:
-    """The unit of `line_search_select` for `ocp`: "wide"
-    (csrc/linesearch_wide.cu) for a kinodynamics OCP that `stage_route`
-    sends to the wide stage kernels, else "narrow" (csrc/linesearch.cu), as
-    `term_linearize` decides."""
-    if ocp.full_dynamics:
-        _require_stage_layout(ocp)
-        return "narrow"
-    return stage_route(ocp)
+_ls_route = stage_route  # the select's unit is the stage kernels'
 
 
 def candidate_integrate_plain(solver, xs, us, dxs, dus):
@@ -1419,7 +1515,7 @@ def line_search_select(solver, xs_c, us_c, costs, g, h, gap, tp, x0, lam_eq, lam
     if dev.type == "cpu":
         return line_search_select_plain(*args)
     if dev.type == "cuda":
-        if _ls_route(solver.ocp) == "wide":
+        if stage_route(solver.ocp) == "wide":
             return wide_line_search_select(*args)
         out = _select_cuda(*args, wide=False)
         line_search_select.launches += 1
@@ -1534,6 +1630,9 @@ def _tick_cuda(fused, carry, x_meas, wide=False):
     if qmax > TICK_MAX_QUEUE:
         raise NotImplementedError(f"tick_refs takes at most {TICK_MAX_QUEUE} events a foot "
                                   f"queue, got {qmax}")
+    if wide and ocp.full_dynamics:
+        raise NotImplementedError("the wide fused tick takes a kinodynamics OCP; "
+                                  "its full-dynamics instance is not ported")
     C, dims = _stage_consts(ocp, dtype, device, wide)
     shapes = dict(x=(nb, ocp.nq + ocp.nv), active_last=(nb, nk), now=(nb,),
                   plan=(nb, L, nk), takeoff=(nb, nk, qmax), land=(nb, nk, qmax),
@@ -1866,7 +1965,8 @@ KERNELS = (stage_linearize, stage_eval, riccati_backward, parallel_riccati_backw
            fd_dynamics, qp_admm, id_assemble, sim_step, wide_stage_linearize,
            wide_stage_eval, wide_term_linearize, state_derivative, wide_state_derivative,
            wide_id_assemble, wide_sim_step, candidate_integrate, state_difference,
-           line_search_select, wide_line_search_select, wide_tick_refs)
+           line_search_select, wide_line_search_select, wide_tick_refs,
+           wide_fd_stage_linearize, wide_fd_stage_eval, wide_fd_dynamics)
 
 
 def reset_launches():

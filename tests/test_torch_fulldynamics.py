@@ -727,20 +727,114 @@ def test_fd_kernels_match_twins_on_cuda(u_scale):
 
 
 @pytest.mark.cuda
-def test_fd_kernels_refuse_6d_contacts():
+def test_fd_kernels_take_6d_contacts_on_the_wide_unit():
+    """Go2 with 6D contacts goes to the wide unit (csrc/fulldyn_wide.cu):
+    the three wrappers launch its kernels, within 1e-10 of their twins in
+    f64 and ten times the f32 twin's own distance from the f64 twin in f32,
+    on stages with one foot in contact (four 6D feet on 3-dof legs over-
+    constrain the robot: the Delassus matrix is singular up to its proximal
+    term).  Beyond the wide unit's limits the wrappers raise
+    NotImplementedError: five 6D feet (30 contact rows), and by route more
+    joints than WIDE_MAX_JOINTS or a force size other than 3 and 6."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from types import SimpleNamespace
+
     from simple_mpc_tpu_torch import kernels
     from simple_mpc_tpu_torch.configs import go2_fulldynamics_config, go2_handler
+    from simple_mpc_tpu_torch.models.model import FREE, REVOLUTE
+    from simple_mpc_tpu_torch.ocp.base import tree_map
     from simple_mpc_tpu_torch.ocp.fulldynamics import FullDynamicsOCP
+    from simple_mpc_tpu_torch.parallel import tile_problem
+    from simple_mpc_tpu_torch.solver.proxddp import ProxDDPSolver, SolverSettings
 
-    mh = go2_handler()
-    cfg = go2_fulldynamics_config(mh)
-    cfg.update(force_size=6, w_forces=np.ones(6), w_frame=np.ones(6), force_cone=False,
-               Kp_correction=np.zeros(6), Kd_correction=np.zeros(6))
-    ocp = FullDynamicsOCP(cfg, mh, "cuda", torch.float32)
-    ocp.create_problem(np.asarray(mh.reference_state), 2, 6, -9.81, False)
-    x = ocp.problem.x0[None].contiguous()
-    p = type(ocp.problem.stage_params)._make(a[:1] for a in ocp.problem.stage_params)
-    with pytest.raises(NotImplementedError, match="point feet"):
-        kernels.fd_dynamics(ocp, x, torch.zeros((1, ocp.nu), device="cuda"), p)
+    def go2_6d(dtype, extra=(), T=4):
+        mh = go2_handler()
+        for f in extra:
+            mh.add_point_foot(f, "base")
+        cfg = go2_fulldynamics_config(mh)
+        cfg.update(force_size=6, w_forces=np.ones(6), w_frame=np.ones(6), force_cone=True,
+                   Kp_correction=np.linspace(5.0, 30.0, 6),
+                   Kd_correction=np.linspace(0.5, 4.0, 6))
+        ocp = FullDynamicsOCP(cfg, mh, "cuda", dtype)
+        ocp.create_problem(np.asarray(mh.reference_state), T, 6, -9.81, False)
+        return ocp
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()
+                     / max(1.0, float(b.double().abs().max())))
+
+    nb, T = 2, 4
+    runs = {}
+    for dtype in (torch.float64, torch.float32):
+        ocp = go2_6d(dtype)
+        assert kernels.stage_route(ocp) == "wide" and ocp.n_in == 24 + 24 + 4 * 17
+        rng = np.random.default_rng(5)
+        x0 = np.asarray(ocp.model_handler.reference_state)
+        xs = np.repeat(x0[None, None], nb, 0).repeat(T + 1, 1)
+        xs = xs + 0.03 * rng.normal(size=xs.shape)
+        xs[..., 3:7] /= np.linalg.norm(xs[..., 3:7], axis=-1, keepdims=True)
+        us = 2.0 * rng.normal(size=(nb, T, ocp.nu))
+        sp = tile_problem(ocp.problem, nb).stage_params
+        act = torch.zeros_like(sp.contact_active)
+        for t in range(T):
+            act[:, t, t % 4] = 1.0  # one foot in contact a stage
+        sp = tree_map(torch.Tensor.contiguous, sp._replace(contact_active=act))
+        c = lambda a: torch.as_tensor(np.array(a), dtype=dtype, device="cuda")  # noqa: E731
+        le = c(np.zeros((nb, T, 0)))
+        li = c(np.abs(rng.normal(size=(nb, T, ocp.n_in))))
+        mu = c(np.geomspace(1e-2, 1e-3, nb))
+        xs_c = np.stack([xs, xs + 1e-3 * rng.normal(size=xs.shape)], 1)
+        xs_c[..., 3:7] /= np.linalg.norm(xs_c[..., 3:7], axis=-1, keepdims=True)
+        us_c = np.stack([us, us + rng.normal(size=us.shape)], 1)
+        xs, us, xs_c, us_c = c(xs), c(us), c(xs_c), c(us_c)
+        solver = ProxDDPSolver(ocp, SolverSettings())
+        x = xs[:, :-1].reshape(nb * T, -1).contiguous()
+        u = us.reshape(nb * T, -1).contiguous()
+        p = tree_map(lambda a: a.reshape((nb * T,) + a.shape[2:]).contiguous(), sp)
+        n = [k.launches for k in kernels.KERNELS]
+        got = (list(kernels.fd_stage_linearize(solver, sp, xs, us, le, li, mu).values())
+               + list(kernels.fd_stage_eval(solver, sp, xs_c, us_c, le, li, mu))
+               + list(kernels.fd_dynamics(ocp, x, u, p)))
+        launched = {k.__name__: k.launches - m for k, m in zip(kernels.KERNELS, n)
+                    if k.launches != m}
+        assert launched == dict(wide_fd_stage_linearize=1, wide_fd_stage_eval=1,
+                                wide_fd_dynamics=1)
+        assert got[-1].shape == (nb * T, 4, 6)
+
+        def twins(f):
+            spc = tree_map(f, sp)
+            return (list(kernels._linearize_traj_plain(
+                        solver, spc, f(xs), f(us), f(le), f(li), f(mu)).values())
+                    + list(kernels._eval_traj_plain(solver, spc, f(xs_c), f(us_c), f(le),
+                                                    f(li), f(mu)))
+                    + list(kernels.fd_dynamics_plain(ocp, f(x), f(u), tree_map(f, p))))
+
+        runs[dtype] = (got, twins(lambda a: a), twins(torch.Tensor.double))
+    got, twin, _ = runs[torch.float64]
+    for a, b in zip(got, twin):
+        if b.numel():
+            assert rel(a, b) < 1e-10
+    got, twin, twin64 = runs[torch.float32]
+    for a, b, w in zip(got, twin, twin64):
+        if b.numel():
+            assert rel(a, w) <= 10 * rel(b, w) + 1e-7, (rel(a, w), rel(b, w))
+
+    five = go2_6d(torch.float32, extra=("FL_calf",))
+    x = five.problem.x0[None].contiguous()
+    p = type(five.problem.stage_params)._make(a[:1] for a in five.problem.stage_params)
+    with pytest.raises(NotImplementedError, match="at most 24 contact rows"):
+        kernels.fd_dynamics(five, x, torch.zeros((1, five.nu), device="cuda"), p)
+
+    def chain(nj, fs):
+        model = SimpleNamespace(njoints=nj, joint_types=(FREE,) + (REVOLUTE,) * (nj - 1),
+                                parents=tuple(range(-1, nj - 1)),
+                                idx_q=(0,) + tuple(6 + j for j in range(1, nj)),
+                                idx_v=(0,) + tuple(5 + j for j in range(1, nj)))
+        return SimpleNamespace(model=model, nk=2, fs=fs, nv=nj + 5, nu=nj - 1,
+                               full_dynamics=True)
+
+    for ocp, what in ((chain(kernels.WIDE_MAX_JOINTS + 1, 6), "at most 32 joints"),
+                      (chain(13, 4), "force size 3 or 6")):
+        with pytest.raises(NotImplementedError, match=what):
+            kernels.stage_route(ocp)
