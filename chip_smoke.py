@@ -22,8 +22,8 @@ Phases, each printing one line; any failure raises and exits non-zero:
                linear_rollout, K1 stage_eval on the candidates, and K9
                tick_refs on 128 fused-tick carries with perturbed
                measurements; times as CUDA-event medians (the slow twins of
-               K1+K2, K3 and K5 on 3 repetitions).  Then the full-dynamics
-               kernels (K7 inside): fd_stage_linearize (u_scale None and
+               K1+K2, K3 and K5 on SLOW_REPS calls after a warm-up).  Then
+               the full-dynamics kernels (K7 inside): fd_stage_linearize (u_scale None and
                "auto"), fd_stage_eval and fd_dynamics, on a perturbed Go2
                full-dynamics T=100, B=128 problem with all 68 inequality
                rows, f32 (gated against the twin in f64) and f64.
@@ -167,7 +167,40 @@ Phases, each printing one line; any failure raises and exits non-zero:
                the largest |v| before it.  On the example's plant the robot
                leaves the band within a few ticks in either precision, so
                this closed loop is not a main path (ROADMAP Queue 3).
-Phases 4-10, 12, 14-16, 18, 23-24, 26 and 27 drive the main paths; every solver call
+ 29. talos_centroidal_kernels — (after phase 25) the centroidal kernels
+               against their twins on the card at B=128, T=100 and at B=1,
+               f32 and f64 (one iteration's inputs of a perturbed Talos
+               centroidal problem, cent_iteration, and CentroidalID's
+               assembly on perturbed states with a foot in swing,
+               cent_id_case): the stage linearization, the candidates, K5
+               and the ODE of csrc/centroidal.cu, the vector-space integrate
+               and gap, the select of csrc/linesearch_centroidal.cu and
+               csrc/id_centroidal.cu; f64 within 1e-10, f32 within ten times
+               the f32 twin's own distance from the f64 twin; times, bounds,
+               registers and stack.  Then `talos_centroidal_sass`: each
+               locked unit's SASS digest against LOCKED_SASS (gated when
+               nvcc's release is LOCKED_SASS_NVCC).
+ 30. talos_centroidal_batched — 30 one-iteration calls of B=128 Talos
+               centroidal T=100 problems from a perturbed iterate, f32: the
+               first call's max prim above 5e-4, each call's within ten
+               times the same stream's in f64 or under the f32 merit's
+               floor, the last a tenth of the first and < 5e-4 (or 10 %
+               above the f64 stream's); solves/s.
+ 31. talos_centroidal_mpc — the example's host MPC (T=100, the biped gait),
+               f32, 40 ticks: finite, no divergence, stage-0 wrenches
+               unilateral with Σfz within 35 % of m g; tick p50/p99, wrapper
+               launches a tick and one tick's trace.
+ 32. talos_centroidal_closed_loop — the port's examples/talos_centroidal.py
+               at JAX's own gate (T=50, 25 ticks: finite, base z within 0.1
+               m); loop_readings.  Then `talos_centroidal_swing`, also a
+               main path: the same loop past its horizon, into the first 8
+               ticks of single support at stage 0 (CentroidalID's swing
+               rows): finite, in the band, the swing sole unloaded and the
+               stance sole carrying m g within 35 % on average.  After the main paths,
+               a reading at the example's T=100 (30 ticks) against the 10 ms
+               and 1 ms budgets (`talos_centroidal_closed_loop_T100`, not
+               gated).
+Phases 4-10, 12, 14-16, 18, 23-24, 26, 27 and 30-32 drive the main paths; every solver call
 launches state_difference once and candidate_integrate and
 line_search_select once an iteration (its wide instance on Talos).  The
 kernels' launch counters are zeroed just before each of them (after the
@@ -185,9 +218,14 @@ a tick, phase 18 the wide ones of each and never the Go2 ones; phases
 gap, and never the Go2 stage kernels; no Go2 phase a wide kernel; phases
 26 and 27 the wide full-dynamics kernels with the wide K5 and select, and
 never a kinodynamics or Go2 full-dynamics stage kernel, and no other path
-those).  The kernel summary's `launches` is the sum over those eighteen
-runs; the launches of phases 3, 11, 13, 17, 19, 21, 22, 25 and 28 and of
-phases 12's and 18's timings are not counted.  Its `bound_ms` is the larger of the bytes each
+those; phases 30-32 the centroidal kernels with K3 and K4's rollout and no
+multibody stage, select, integrate, gap, ID or derivative kernel, phase 32
+each solver kernel exactly once a tick, the three inner kernels
+(centroidal_id_assemble, qp_admm, wide_sim_step) once an inner step and the
+centroidal ODE twice a tick, and no other path a centroidal kernel).  The
+kernel summary's `launches` is the sum over those twenty-one runs; the
+launches of phases 3, 11, 13, 17, 19, 21, 22, 25, 28 and 29 and of phases
+12's, 18's and 32's timings are not counted.  Its `bound_ms` is the larger of the bytes each
 kernel moves (inputs read once, outputs written once, at the summary's
 shape) over 3.35 TB/s and its counted FLOPs over 67 TFLOP/s (H100 SXM,
 FP32 outside the tensor cores); FLOPs of the rigid-body arithmetic of K1,
@@ -202,6 +240,7 @@ primal and once along each tangent direction), not the kinematics, CRBA or
 bias torques.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -219,7 +258,7 @@ ALPHAS = (0.0, 1.0, 0.5, 0.25, 0.1)
 F32_FD_TOL = 3e-4
 PYRAMID_CALLS = 4  # calls (ticks) of the fd phases' 68-row runs (prim printed, not gated)
 REPS = 20
-SLOW_REPS = 3  # the torch.func twins of K1+K2 and K5 and the f64 twin of K3
+SLOW_REPS = 1  # the torch.func twins of K1+K2 and K5 and the f64 twin of K3
 # the kernels each path of the main path must launch, and must not
 # K4 after the rollout: once a solve before its iterations
 # (state_difference) and once an iteration (the other two)
@@ -2324,10 +2363,15 @@ def loop_readings(mpc, mh, idq, log, q, v):
     tau = idq.solve(0.0, qd, vd)
     wide = kernels.body_route(mh.model, idq.nk, idq.fdim) == "wide"
     pre = "wide_" if wide else ""
-    kms = {f"{pre}id_assemble": cuda_ms(lambda: kernels.id_assemble(idq, qb, vb, targets), REPS),
+    # the centroidal loop: its ID's and its 9-dim ODE's kernels, and its
+    # state interpolated linearly
+    cent = kernels._is_centroidal(mpc.ocp_handler)
+    id_name = "centroidal_id_assemble" if kernels._is_centroidal_id(idq) else f"{pre}id_assemble"
+    sd_name = "centroidal_state_derivative" if cent else f"{pre}state_derivative"
+    kms = {id_name: cuda_ms(lambda: kernels.id_assemble(idq, qb, vb, targets), REPS),
            "qp_admm": cuda_ms(lambda: kernels.qp_admm(H, g, A, l, u, iters=60), REPS),
            f"{pre}sim_step": cuda_ms(lambda: kernels.sim_step(sim, qb, vb, tau[None]), REPS),
-           f"{pre}state_derivative": cuda_ms(lambda: mpc.get_state_derivative(0), REPS)}
+           sd_name: cuda_ms(lambda: mpc.get_state_derivative(0), REPS)}
 
     def inner_steps():
         qq, vv = qd, vd
@@ -2342,11 +2386,12 @@ def loop_readings(mpc, mh, idq, log, q, v):
     # a tick's ten at once, on the host clock
     interp = Interpolator(mh.model)
     xs, delays = mpc.xs[:2], [i * 1e-3 for i in range(10)]
+    state = interp.interpolate_linear if cent else interp.interpolate_state
 
     def refs():
         aa = torch.stack([mpc.get_state_derivative(0)[-mh.model.nv:],
                           mpc.get_state_derivative(1)[-mh.model.nv:]])
-        interp.interpolate_state(delays, 0.01, xs)
+        state(delays, 0.01, xs)
         interp.interpolate_linear(delays, 0.01, aa)
 
     def host_ms(fn, reps=REPS):
@@ -2359,8 +2404,8 @@ def loop_readings(mpc, mh, idq, log, q, v):
         return 1e3 * (time.perf_counter() - t1) / reps
 
     refs_trace = trace_calls(refs, n=3)
-    interp_ms = dict(one_delay=host_ms(lambda: interp.interpolate_state(3e-3, 0.01, xs)),
-                     ten_delays=host_ms(lambda: interp.interpolate_state(delays, 0.01, xs)))
+    interp_ms = dict(one_delay=host_ms(lambda: state(3e-3, 0.01, xs)),
+                     ten_delays=host_ms(lambda: state(delays, 0.01, xs)))
     for k, n in loop_launches.items():
         k.launches = n
     return dict(
@@ -3444,8 +3489,611 @@ def phase_talos_fd_closed_loop(device):
     phase("talos_fd_closed_loop", t0, gated=False, runs=runs)
 
 
+# ---------------------------------------------------------------------------
+# Talos centroidal (x = [com; h], two 6D wrenches): csrc/centroidal.cu, its
+# line-search select (csrc/linesearch_centroidal.cu) and CentroidalID's
+# assembly (csrc/id_centroidal.cu)
+# ---------------------------------------------------------------------------
+
+CENT_KERNELS = ("centroidal_stage_linearize", "centroidal_stage_eval",
+                "centroidal_term_linearize", "centroidal_line_search_select",
+                "vector_candidate_integrate", "vector_state_difference")
+CENT_SOLVER_KERNELS = CENT_KERNELS + ("riccati_backward", "linear_rollout")
+CENT_INNER_KERNELS = ("centroidal_id_assemble", "qp_admm", "wide_sim_step")
+CENT_ALL = CENT_KERNELS + ("centroidal_state_derivative", "centroidal_id_assemble")
+CENT_MPC_TICKS = 40
+# JAX's own smoke gate of the example (tests/test_examples_smoke.py:20-33):
+# T=50, 25 ticks; beside it a reading at the example's T=100
+CENT_LOOP_T, CENT_LOOP_TICKS = 50, 25
+CENT_READ_T, CENT_READ_TICKS = 100, 30
+# past the horizon at JAX's gate's T=50: the gait's first single support
+# reaches stage 0 at tick index 19 + T, and the loop stops CENT_SWING_SS + 1
+# ticks into it (the example diverges 14 ticks in, in JAX as in the port)
+CENT_SWING_SS = 8
+CENT_SWING_TICKS = 20 + CENT_LOOP_T + CENT_SWING_SS
+PATH_KERNELS.update(talos_centroidal_batched=CENT_SOLVER_KERNELS,
+                    talos_centroidal_mpc=CENT_SOLVER_KERNELS,
+                    talos_centroidal_closed_loop=CENT_SOLVER_KERNELS + CENT_INNER_KERNELS
+                    + ("centroidal_state_derivative",))
+PATH_KERNELS["talos_centroidal_swing"] = PATH_KERNELS["talos_centroidal_closed_loop"]
+PATH_EXACT["talos_centroidal_closed_loop"] = loop_launches(
+    CENT_SOLVER_KERNELS, CENT_INNER_KERNELS, "centroidal_state_derivative", CENT_LOOP_TICKS)
+PATH_EXACT["talos_centroidal_swing"] = loop_launches(
+    CENT_SOLVER_KERNELS, CENT_INNER_KERNELS, "centroidal_state_derivative", CENT_SWING_TICKS)
+# the centroidal paths launch no multibody stage, select, integrate, gap,
+# ID or derivative kernel and no fused-tick kernel; no other path launches
+# a centroidal one
+_CENT_ABSENT = (GO2_STAGE_KERNELS + WIDE_KERNELS + WIDE_FD_KERNELS + _KINO_STAGE + _GO2_FD
+                + ("candidate_integrate", "state_difference", "id_assemble",
+                   "wide_id_assemble", "tick_refs", "wide_tick_refs", "parallel_riccati_backward"))
+for _path in PATH_KERNELS:
+    if _path.startswith("talos_centroidal"):
+        PATH_ABSENT[_path] = _CENT_ABSENT
+    else:
+        PATH_ABSENT[_path] = PATH_ABSENT.get(_path, ()) + CENT_ALL
+PATH_ABSENT["talos_centroidal_batched"] += ("centroidal_state_derivative", "centroidal_id_assemble")
+PATH_ABSENT["talos_centroidal_mpc"] += ("centroidal_id_assemble",)
+# csrc units that existed before the centroidal ones: their SASS must not
+# move (ROADMAP "Constraints")
+LOCKED_UNITS = ("linearize.cu", "linearize_wide.cu", "tick.cu", "tick_wide.cu", "fulldyn.cu",
+                "fulldyn_wide.cu", "id.cu", "sim.cu", "acc.cu", "acc_wide.cu", "id_wide.cu",
+                "sim_wide.cu", "linesearch.cu", "linesearch_wide.cu", "riccati.cu",
+                "rollout.cu", "parallel_riccati.cu", "qp.cu")
+# sha256 of each locked unit's normalized `cuobjdump -sass` as the tree
+# before the centroidal units compiled it on an NVIDIA H100 80GB HBM3 at
+# 700 W with the nvcc release below (sass_digests); another nvcc prints
+# its digests ungated
+LOCKED_SASS_NVCC = "Cuda compilation tools, release 12.9, V12.9.86"
+LOCKED_SASS = {
+    "linearize.cu": "1090ed1bd8512e313bf88caabf0e884012a4e72f2c264d4804898b4cfda401a9",
+    "linearize_wide.cu": "6ef3e15f289bc44ee830ed4144f94e28d7c010812d38f9720eee00dcead066d0",
+    "tick.cu": "55e311b9ae502d7864b1319fac55d77d71568adcb1c9fa0abf09460508b252b1",
+    "tick_wide.cu": "ddea9f183d706e05efdb138c8d867e45a0f606ec9f7805266a594e59f7377f74",
+    "fulldyn.cu": "ad0e55a758937576f460c8e46ba46539d5c7c1a016be49ec63926a04fd56d820",
+    "fulldyn_wide.cu": "9fa7879915ddf739e8788dd748062bf26578d8e0efa1275aef517cbed860f241",
+    "id.cu": "b0978d5b17323d37e8f716a93ee4ea6037500d08d7b4f7e977062da2dfbbc833",
+    "sim.cu": "053955c30d2553f078671d2a462469a85e836fa4af550281e262cfbedf35417b",
+    "acc.cu": "76d652022eea9f5570ecbe8c5c38cd74bf580c10e054b53c22dac4cbd5d234ae",
+    "acc_wide.cu": "9b152d3c7a73e059a8a2ffc7614d47983d423a68aa524c34f9a7a5a046255edc",
+    "id_wide.cu": "b548bcbecdbe424e14be98e93b1a1883732764b7eb367e4240229affc1bef52a",
+    "sim_wide.cu": "0963c9b772d7770dcb4ab1a5383f3ce1f23e46fd5d1ce038d9e8717d4e11b730",
+    "linesearch.cu": "bc760b65a04d0c3fbcae61133a55a6fdd527d77c5e6d5f5837b247a31b886a12",
+    "linesearch_wide.cu": "a93c8493ecdcf4628546efb28f593c2a79bf0f555198fd2e384b149aeb8fe0fd",
+    "riccati.cu": "f5092e863726944c33f7b7329aac41d583ab85fb15bd4c99105b1ea8d1c67eca",
+    "rollout.cu": "d0d6ab6cd30522454a249da8be064f0def106b00a7bc7fa3c0132966e2156673",
+    "parallel_riccati.cu": "50b440eee30e6438f62f897653eba2bbb803861ac936a68e1d2acd84a7baf6ca",
+    "qp.cu": "f682ff83427a68e16ce61f30370a413b3441d11f1d36dad4d472052cad9bdd63",
+}
+
+
+def sass_start(csrc, units, workdir):
+    """Start one nvcc per csrc/<unit>, all together, compiling it alone to a
+    cubin with the library's flags; `sass_digests` reads them.  The script
+    starts them after the build so that they compile while the kernel phases
+    run, at the lowest CPU priority (the card's launches keep the host's
+    cores first); they are killed at exit if still running."""
+    import atexit
+
+    from simple_mpc_tpu_torch import kernels
+
+    nvcc = kernels._nvcc()
+    os.makedirs(workdir, exist_ok=True)
+    procs = {}
+    for u in units:
+        fmad = ("-fmad=false",) if u in kernels.NO_FMA else ()
+        out = os.path.join(workdir, u + ".cubin")
+        procs[u] = (out, subprocess.Popen(
+            [nvcc, *kernels.ARCH, "-std=c++17", "-O3", *fmad, "-cubin", "-o", out,
+             os.path.join(csrc, u)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, preexec_fn=lambda: os.nice(19)))
+    atexit.register(lambda: [p.kill() for _, p in procs.values() if p.poll() is None])
+    return nvcc, procs
+
+
+def sass_digests(started):
+    """{unit: sha256 of its SASS} of `sass_start`'s cubins, read with
+    cuobjdump -sass; the names of internal-linkage functions, which carry a
+    per-path hash, are normalized.  Also returns nvcc's release line."""
+    import hashlib
+    import re
+
+    nvcc, procs = started
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    digests = {}
+    for u, (out, p) in procs.items():
+        log = p.communicate()[0]
+        check(p.returncode == 0, f"nvcc -cubin {u} failed:\n{log}")
+        r = subprocess.run([cuobjdump, "-sass", out], capture_output=True, text=True,
+                           timeout=300)
+        check(r.returncode == 0, f"cuobjdump {u}: {r.stderr}")
+        text = re.sub(r"(_INTERNAL_|_GLOBAL__N__)[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}", r"\1",
+                      r.stdout)
+        digests[u] = hashlib.sha256(text.encode()).hexdigest()
+    ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True).stdout
+    release = next((ln.strip() for ln in ver.splitlines() if "release" in ln), ver.strip())
+    return digests, release
+
+
+def locked_sass_start():
+    return sass_start(os.path.join(ROOT, "simple_mpc_tpu_torch", "csrc"), LOCKED_UNITS,
+                      os.path.join(ROOT, "simple_mpc_tpu_torch", "_build", "sass"))
+
+
+def cent_case(device, dtype, nb, seed):
+    """(ocp, solver, stage params, xs, us, lam_in, mu, term params, x0) of a
+    perturbed Talos centroidal problem (configs.make_talos_centroidal, the
+    example's weights and 6D wrenches) at the main path's T=100 with nb
+    scenarios: each scenario's feet lifted in turns over a window, its foot
+    positions, references and iterate perturbed from numpy with `seed`, and
+    cone multipliers on about half the rows."""
+    from simple_mpc_tpu_torch.configs import make_talos_centroidal
+    from simple_mpc_tpu_torch.ocp.base import tree_map
+    from simple_mpc_tpu_torch.solver.proxddp import ProxDDPSolver, SolverSettings
+
+    ocp, mh, x0 = make_talos_centroidal(T, device=device, dtype=dtype)
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)  # noqa: E731
+    sp = tree_map(lambda a: a[None].expand((nb,) + a.shape).clone(), ocp.problem.stage_params)
+    act = np.ones((nb, T, ocp.nk))
+    for b in range(nb):
+        s0 = rng.integers(0, T - T // 3)
+        act[b, s0: s0 + T // 3, b % ocp.nk] = 0.0
+    sp = sp._replace(
+        contact_active=t(act),
+        contact_pose=sp.contact_pose + t(0.02 * rng.standard_normal((nb, T, ocp.nk, 3))),
+        com_ref=t(x0[:3] + 0.02 * rng.standard_normal((nb, T, 3))),
+        linmom_ref=t(rng.standard_normal((nb, T, 3))),
+        angmom_ref=t(0.5 * rng.standard_normal((nb, T, 3))))
+    xs = t(x0[None, None] + np.concatenate([0.01 * rng.standard_normal((nb, T + 1, 3)),
+                                            0.5 * rng.standard_normal((nb, T + 1, 6))], -1))
+    us = sp.u_ref * t(act.repeat(ocp.fs, -1)) + t(5.0 * rng.standard_normal((nb, T, ocp.nu)))
+    li = rng.exponential(5.0, (nb, T, ocp.n_in)) * (rng.random((nb, T, ocp.n_in)) < 0.5)
+    mu = t(10.0 ** rng.uniform(-4, -2, nb))
+    tp = tree_map(lambda a: a[None].expand((nb,) + a.shape).clone(), ocp.problem.term_params)
+    tp = tp._replace(linmom_ref=t(rng.standard_normal((nb, 3))))
+    x0b = xs[:, 0] + t(0.001 * rng.standard_normal((nb, 9)))
+    solver = ProxDDPSolver(ocp, SolverSettings(mu_init=1e-8, max_iters=1, alphas=ALPHAS))
+    return ocp, solver, sp, xs, us, t(li), mu, tp, x0b
+
+
+def cent_iteration(device, dtype, nb, seed=21):
+    """One solver iteration of cent_case through the kernels, keeping each
+    new kernel's inputs: {name: (kernel, twin, args)} and the ocp."""
+    from simple_mpc_tpu_torch import kernels
+    from simple_mpc_tpu_torch.ocp.base import tree_map
+
+    ocp, s, sp, xs, us, li, mu, tp, x0 = cent_case(device, dtype, nb, seed)
+    le = torch.zeros((nb, T, 0), dtype=dtype, device=device)
+    lt = torch.zeros((nb, 0), dtype=dtype, device=device)
+    lin_args = (s, sp, xs, us, le, li, mu)
+    lin = kernels.centroidal_stage_linearize(*lin_args)
+    term_args = (s, xs[:, -1], tp, lt, mu)
+    Vx, Vxx = kernels.centroidal_term_linearize(*term_args)
+    reg = max(s.settings.reg_init, 50 * torch.finfo(dtype).eps)
+    ks, Ks, dual = kernels.riccati_backward(lin, Vx, Vxx, reg)
+    dif_args = (s, xs[:, 0], x0)
+    dx0 = kernels.vector_state_difference(*dif_args)
+    alphas = s._const("alphas", ALPHAS, xs)
+    dxs, dus = kernels.linear_rollout(lin["A"], lin["B"], lin["d"], ks, Ks, dx0, alphas)
+    int_args = (s, xs, us, dxs, dus)
+    xs_c, us_c = kernels.vector_candidate_integrate(*int_args)
+    eval_args = (s, sp, xs_c, us_c, le, li, mu)
+    costs, g, h, gap = kernels.centroidal_stage_eval(*eval_args)
+    eta = torch.clamp(mu ** s.settings.bcl_alpha, min=s.settings.tol)
+    omega = torch.full_like(mu, -1.0)
+    sel_args = (s, xs_c, us_c, costs, g, h, gap, tp, x0, le, li, lt, mu, eta, omega, dual,
+                alphas)
+    p = tree_map(lambda a: a.reshape((-1,) + a.shape[2:]), sp)
+    ode_args = (ocp, xs[:, :-1].reshape(-1, 9), us.reshape(-1, ocp.nu), p)
+    return ocp, dict(
+        centroidal_stage_linearize=(kernels.centroidal_stage_linearize,
+                                    kernels._linearize_traj_plain, lin_args),
+        centroidal_stage_eval=(kernels.centroidal_stage_eval, kernels._eval_traj_plain,
+                               eval_args),
+        centroidal_term_linearize=(kernels.centroidal_term_linearize,
+                                   kernels._linearize_term_plain, term_args),
+        vector_candidate_integrate=(kernels.vector_candidate_integrate,
+                                    kernels.candidate_integrate_plain, int_args),
+        vector_state_difference=(kernels.vector_state_difference,
+                                 kernels.state_difference_plain, dif_args),
+        centroidal_line_search_select=(kernels.centroidal_line_search_select,
+                                       kernels.line_search_select_plain, sel_args),
+        centroidal_state_derivative=(kernels.centroidal_state_derivative,
+                                     kernels.centroidal_state_derivative_plain, ode_args))
+
+
+def cent_id_case(device, dtype, nb, seed=5):
+    """(kernel, twin, args) of CentroidalID's assembly on nb perturbed Talos
+    states (the example's IDSettings), the right foot in swing with its
+    target moved and turned, CoM targets perturbed."""
+    from simple_mpc_tpu_torch import kernels
+    from simple_mpc_tpu_torch.configs import talos_handler
+    from simple_mpc_tpu_torch.examples.talos_centroidal import ID_SETTINGS
+    from simple_mpc_tpu_torch.id.centroidal_id import CentroidalID
+    from simple_mpc_tpu_torch.id.kinodynamics_id import IDSettings
+
+    mh = talos_handler()
+    cid = CentroidalID(mh, 1e-3, IDSettings(**ID_SETTINGS), device=device, dtype=dtype)
+    m, rng = mh.model, np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)  # noqa: E731
+    x = np.asarray(mh.reference_state)
+    q = np.tile(x[: m.nq], (nb, 1))
+    q[:, 7:] += 0.05 * rng.standard_normal((nb, m.nq - 7))
+    q[:, :3] += 0.01 * rng.standard_normal((nb, 3))
+    v = 0.2 * rng.standard_normal((nb, m.nv))
+    tg = {k: a[None].expand((nb,) + a.shape).clone() for k, a in cid._targets.items()}
+    tg["contacts"] = t(np.tile([1.0, 0.0], (nb, 1)))
+    th = 0.1 * rng.standard_normal(nb)
+    rot = np.stack([np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)], [0, np.sin(a), np.cos(a)]])
+                    for a in th])
+    tg["feet_R_t"] = tg["feet_R_t"] @ t(rot)[:, None]
+    tg["feet_p_t"] = tg["feet_p_t"] + t(0.03 * rng.standard_normal((nb, 2, 3)))
+    tg["feet_v_t"] = t(0.1 * rng.standard_normal((nb, 2, 6)))
+    tg["com_t"] = tg["com_t"] + t(0.01 * rng.standard_normal((nb, 3)))
+    tg["com_v_t"] = t(0.05 * rng.standard_normal((nb, 3)))
+    return cid, (kernels.centroidal_id_assemble, lambda c, qq, vv, tt: c._assemble_core(qq, vv, tt),
+                 (cid, t(q), t(v), tg))
+
+
+def cent_rel(a, b, select=False):
+    """The worst ls_rel over two results' tensors (empty ones skipped).
+    With `select` (two LineSearch results) over the scenarios where both
+    picked the same step size; where they did not, their merits must tie
+    within 1e-5 (f32 roundoff of the merit), else inf."""
+    if select:
+        same = (a.alpha == b.alpha).cpu()
+        tie = ((a.merit - b.merit).abs() <= 1e-5 * b.merit.abs()).cpu()
+        if not bool((same | tie).all()):
+            return float("inf")
+        a = [x[same.to(x.device)] for x in outputs(a)]
+        b = [x[same.to(x.device)] for x in outputs(b)]
+    return max([ls_rel(x, y) for x, y in zip(outputs(a), outputs(b)) if y.numel()] or [0.0])
+
+
+def cent_flops(ocp, cid):
+    """Counted FLOPs of the centroidal kernels at the main path's shapes:
+    the Gauss-Newton products of the linearization (nr AL rows, 9 + nu
+    directions) and of CentroidalID's cost rows (H and g over nz); the rest
+    move bytes."""
+    nr, nd = 15 + ocp.nu + ocp.n_in, 9 + ocp.nu
+    rows = cid.nu + 6 + 2 * cid.nk * cid.fdim + 3 + cid.nk * cid.fdim
+    return dict(centroidal_stage_linearize=B * T * 2 * nr * nd * (nd + 1),
+                centroidal_id_assemble=B * 2 * rows * cid.nz * (cid.nz + 1))
+
+
+def cent_up(args):
+    """args with every floating tensor (and param tuple leaf) in float64."""
+    from simple_mpc_tpu_torch.ocp.base import tree_map
+
+    def up(a):
+        if torch.is_tensor(a):
+            return a.double() if a.is_floating_point() else a
+        if isinstance(a, tuple) and hasattr(a, "_fields"):
+            return tree_map(lambda x: x.double() if x.is_floating_point() else x, a)
+        if isinstance(a, dict):
+            return {k: up(v) for k, v in a.items()}
+        return a
+    return tuple(up(a) for a in args)
+
+
+def phase_talos_centroidal_kernels(device, ptxas_log="", sass_job=None):
+    """The centroidal kernels against their twins on the card: the stage
+    linearization, the candidates' evaluation, the terminal K5 and the ODE
+    of csrc/centroidal.cu, its vector-space integrate and initial gap, the
+    select of csrc/linesearch_centroidal.cu (cent_iteration: one
+    iteration's inputs of a perturbed Talos centroidal T=100 problem) and
+    CentroidalID's assembly of csrc/id_centroidal.cu (cent_id_case), at
+    B=128 and B=1.  Gates (cent_rel: the worst output, relative to its
+    largest entry): in f64 within 1e-10 of the twin; in f32 within ten times
+    the f32 twin's own distance from the f64 twin (both on the card, the
+    f64 twin on the f32 inputs; at least 1e-6: a distance of 0 leaves the
+    kernel its own roundoff).  Times: CUDA-event medians of the kernels and
+    of their twins; bounds by roofline; registers and stack from the ptxas
+    log.  Then the locked units' SASS (sass_digests) against LOCKED_SASS."""
+    from simple_mpc_tpu_torch import kernels
+
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        t0 = time.perf_counter()
+        f32 = dtype == torch.float32
+        errs, abs_err, twin_d, times, bounds = {}, {}, {}, {}, {}
+        for nb in (B, 1):
+            ocp, runs = cent_iteration(device, dtype, nb)
+            cid, idrun = cent_id_case(device, dtype, nb)
+            runs["centroidal_id_assemble"] = idrun
+            for name, (kern, twin, args) in runs.items():
+                got, want = kern(*args), twin(*args)
+                sel = name == "centroidal_line_search_select"
+                if f32:
+                    ref = twin(*cent_up(args))
+                    d = cent_rel(want, ref, sel)
+                    err, tol = cent_rel(got, ref, sel), max(10 * d, 1e-6)
+                    twin_d[f"{name}_B{nb}"] = d
+                else:
+                    err, tol = cent_rel(got, want, sel), 1e-10
+                    if sel:
+                        check(torch.equal(got.alpha, want.alpha),
+                              f"{name} B={nb} f64: another step size than the twin's")
+                check(err <= tol, f"{name} B={nb} {dtype}: {err:.3e} > {tol:.3e}")
+                errs[name] = max(errs.get(name, 0.0), err)
+                a = max([float((x.double() - y.double()).abs().nan_to_num().max())
+                         for x, y in zip(outputs(got), outputs(want)) if y.numel()] or [0.0])
+                abs_err[name] = max(abs_err.get(name, 0.0), a)
+                if nb == B:
+                    times[name] = (cuda_ms(lambda: kern(*args), REPS),
+                                   cuda_ms(lambda: twin(*args), SLOW_REPS))
+                    moved = (select_bytes(args[1:], got) if name == "centroidal_line_search_select"
+                             else nbytes((args, got)))
+                    bounds[name] = roofline(cent_flops(ocp, cid).get(name, 0), moved)
+        name = str(dtype).replace("torch.", "")
+        out[name] = dict(errs=errs, abs_err=abs_err, times=times, bounds=bounds)
+        phase(f"talos_centroidal_kernels_{name}", t0, B=B, T=T, nx=9, nu=ocp.nu,
+              n_in=ocp.n_in, rel_err=errs, max_abs_err=abs_err,
+              f32_twin_vs_f64_twin=twin_d if f32 else None, ms_kernel_vs_plain=times,
+              bound_ms=bounds,
+              ptxas=ptxas_report(ptxas_log, ("centroidal_linearize_kernel",
+                                             "centroidal_eval_kernel", "id_assemble_kernel"),
+                                 wide=True) if f32 else None)
+    t0 = time.perf_counter()
+    digests, release = sass_digests(sass_job or locked_sass_start())
+    gated = release == LOCKED_SASS_NVCC
+    if gated:
+        moved = [u for u in LOCKED_UNITS if digests[u] != LOCKED_SASS.get(u)]
+        check(not moved, f"locked units' SASS moved: {moved}")
+    phase("talos_centroidal_sass", t0, nvcc=release, gated=gated, sha256=digests)
+    return out
+
+
+def cent_batched_start(device, dtype):
+    """The batched solver of phase_talos_centroidal_batched and its start:
+    B=128 Talos centroidal T=100 standing problems (the example's), each
+    scenario's x0 (CoM 1 cm, momenta 0.1) and its iterate (states: CoM
+    1 cm, momenta 0.5 about x0; wrenches 5 N or N m about the reference)
+    perturbed from numpy (seed 17), so that the first call leaves a max
+    prim_res ten times the gate; one iteration a call, mu_init 1e-6 (the
+    batched cells' and the JAX bench's, bench.py:121)."""
+    from simple_mpc_tpu_torch.configs import make_talos_centroidal
+    from simple_mpc_tpu_torch.ocp.base import Problem
+    from simple_mpc_tpu_torch.parallel import BatchedSolver, tile_problem
+    from simple_mpc_tpu_torch.solver.proxddp import ProxDDPSolver, SolverSettings
+
+    ocp, _, x0 = make_talos_centroidal(T, device=device, dtype=dtype)
+    rng = np.random.default_rng(17)
+    x0b = x0[None] + np.concatenate([0.01 * rng.standard_normal((B, 3)),
+                                     0.1 * rng.standard_normal((B, 6))], -1)
+    xs = x0b[:, None] + np.concatenate([0.01 * rng.standard_normal((B, T + 1, 3)),
+                                        0.5 * rng.standard_normal((B, T + 1, 6))], -1)
+    xs[:, 0] = x0b
+    probs = tile_problem(ocp.problem, B)
+    us = probs.stage_params.u_ref.cpu().double().numpy() + 5.0 * rng.standard_normal(
+        (B, T, ocp.nu))
+    probs = Problem(x0=ocp._tensor(x0b), stage_params=probs.stage_params,
+                    term_params=probs.term_params)
+    lams = (torch.zeros((B, T, 0), dtype=dtype, device=device),
+            torch.zeros((B, T, ocp.n_in), dtype=dtype, device=device),
+            torch.zeros((B, 0), dtype=dtype, device=device))
+    bs = BatchedSolver(ProxDDPSolver(ocp, SolverSettings(mu_init=1e-6, max_iters=1,
+                                                         alphas=ALPHAS)))
+    return bs, probs, ocp._tensor(xs), ocp._tensor(us), lams
+
+
+def cent_batched_stream(device, dtype, calls=30):
+    """(per call: max prim_res, mean merit, the share of scenarios whose
+    line search kept the iterate (alpha = 0); the last result, the solver,
+    the wall seconds of the timed calls): two warm-up calls from the start,
+    then `calls` calls from the start again, each fed the last result."""
+    bs, probs, xs0, us0, lams0 = cent_batched_start(device, dtype)
+    for _ in range(2):
+        bs.run(probs, xs0, us0, lams0)
+    torch.cuda.synchronize()
+    xs, us, lams = xs0, us0, lams0
+    prims, merits, kept = [], [], []
+    t1 = time.perf_counter()
+    for _ in range(calls):
+        res = bs.run(probs, xs, us, lams)
+        xs, us, lams = res.xs, res.us, (res.lam_eq, res.lam_in, res.lam_term)
+        prims.append(res.prim_res.max())
+        merits.append(res.merit.mean())
+        kept.append((res.alpha == 0).to(dtype).mean())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    return ([float(p) for p in prims], [float(m) for m in merits], [float(k) for k in kept],
+            res, bs, wall)
+
+
+def cent_batched_setup(device):
+    """The f64 stream beside phase_talos_centroidal_batched's f32 one, made
+    before the path's counters are zeroed (a comparison, not the path)."""
+    return (cent_batched_stream(device, torch.float64)[0],)
+
+
+def merit_floor(res, nT):
+    """The smallest gap an f32 merit can see: a step that closes a gap g
+    lowers the merit by g^2 / (2 mu), and the merit, a sum of nT stage
+    terms, carries about sqrt(nT) eps |merit| of f32 rounding; below that
+    the step ties with alpha = 0 and the argmin keeps the iterate."""
+    eps = torch.finfo(torch.float32).eps
+    return math.sqrt(2.0 * float(res.mu.max()) * math.sqrt(nT) * eps
+                     * float(res.merit.abs().max()))
+
+
+def phase_talos_centroidal_batched(device, prims64):
+    """Talos centroidal, B=128, T=100 (cent_batched_start: a perturbed
+    iterate), f32: 30 one-iteration calls each fed the last result, after
+    two warm-up calls.  Gates: finite, no divergence; the first call's max
+    prim_res above 5e-4 in both streams (the stream starts above the gate);
+    call by call, the f32 stream within ten times the same stream in f64
+    (`prims64`, solved on the card) or under `merit_floor`; the last call
+    a tenth of the first at most and under 5e-4 (bench.py:192), or, where
+    the f64 stream also misses 5e-4, under 10 % above its last call.
+    Prints solves/s, both streams, the f32 merits and the share of
+    scenarios that kept their iterate each call."""
+    t0 = time.perf_counter()
+    calls = len(prims64)
+    prims, merits, kept, res, bs, wall = cent_batched_stream(device, torch.float32, calls)
+    s = {k: float(v) for k, v in bs.summary(res).items()}
+    check(torch.isfinite(res.xs).all() and torch.isfinite(res.us).all()
+          and torch.isfinite(res.Ks).all(), "centroidal batched solve: non-finite iterate")
+    check(s["any_diverged"] == 0, "centroidal batched solve: a scenario diverged")
+    check(min(prims[0], prims64[0]) > 5e-4,
+          f"centroidal batched solve: the stream starts under the gate ({prims[0]:.3e}, "
+          f"f64 {prims64[0]:.3e})")
+    floor = merit_floor(res, T)
+    off = [i for i, (p, q) in enumerate(zip(prims, prims64)) if p > max(10 * q, floor)]
+    check(not off, f"centroidal batched solve: f32 max prim over ten times f64's and over "
+          f"the merit floor {floor:.3e} at calls {off}: {[prims[i] for i in off]} against "
+          f"{[prims64[i] for i in off]}")
+    lim = 5e-4 if prims64[-1] < 5e-4 else 1.1 * prims64[-1]
+    check(s["max_prim"] < lim and prims[-1] <= 0.1 * prims[0],
+          f"centroidal batched solve: last max prim {s['max_prim']:.3e} (first "
+          f"{prims[0]:.3e}, gate {lim:.3e})")
+    phase("talos_centroidal_batched", t0, B=B, T=T, calls=calls,
+          solves_per_s=B * calls / wall, ms_per_call=1e3 * wall / calls,
+          max_prim_per_call=prims, gate=lim, f64_max_prim_per_call=prims64,
+          merit_floor=floor, mean_merit_per_call=merits, alpha0_share_per_call=kept, **s)
+
+
+def phase_talos_centroidal_mpc(device):
+    """The host MPC of examples/talos_centroidal.py (configs.talos_centroidal_mpc:
+    T=100, the biped gait 20/80/20/80 at 0.1 m/s, T_fly 80, T_contact 20,
+    apex 0.1 m, mu_init 1e-8, the first solve's 100 iterations), f32:
+    CENT_MPC_TICKS ticks, each measuring the reference state, then 5 more
+    under the profiler.  Gates: finite plans, no divergence, and on every
+    tick the stage-0 wrenches (us[0]) unilateral (fz > -1e-6) with their fz
+    summing to within 35 % of m g.  Prints tick p50/p99 and the kernels a
+    tick (from the launch counters)."""
+    from simple_mpc_tpu_torch import kernels
+    from simple_mpc_tpu_torch.configs import talos_centroidal_mpc
+
+    t0 = time.perf_counter()
+    mpc = talos_centroidal_mpc(T, device=device, dtype=torch.float32)
+    check(not mpc.diverged, "centroidal MPC: initial solve diverged")
+    setup = time.perf_counter() - t0
+    mh = mpc.ocp_handler.model_handler
+    mg, x = mh.mass * 9.81, np.asarray(mh.reference_state)
+    n0 = sum(k.launches for k in kernels.KERNELS)
+    lat, prims, fz = [], [], []
+    for _ in range(CENT_MPC_TICKS):
+        t1 = time.perf_counter()
+        res = mpc.iterate(x)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t1)
+        check(not mpc.diverged, "centroidal MPC: a tick diverged")
+        check(bool(torch.isfinite(res.xs).all() and torch.isfinite(res.us).all()
+                   and torch.isfinite(res.Ks).all()), "centroidal MPC: non-finite plan")
+        f = res.us[0].double().cpu().numpy().reshape(mh.n_feet, -1)
+        act = np.asarray(mpc.ocp_handler.get_contact_state(0), bool)
+        check(f[act, 2].min() > -1e-6, f"centroidal MPC: stage-0 wrenches not unilateral: {f[:, 2]}")
+        check(abs(f[act, 2].sum() - mg) < 0.35 * mg,
+              f"centroidal MPC: stage-0 wrenches carry {f[act, 2].sum():.2f} N of m g = {mg:.2f} N")
+        prims.append(float(res.prim_res))
+        fz.append(float(f[act, 2].sum() / mg))
+    per_tick = (sum(k.launches for k in kernels.KERNELS) - n0) / CENT_MPC_TICKS
+    trace = trace_calls(lambda: mpc.iterate(x))
+    lat_ms = 1e3 * np.asarray(lat)
+    phase("talos_centroidal_mpc", t0, T=T, ticks=CENT_MPC_TICKS, setup_s=setup,
+          tick_p50_ms=float(np.percentile(lat_ms, 50)),
+          tick_p99_ms=float(np.percentile(lat_ms, 99)), kernel_calls_per_tick=per_tick,
+          max_prim=float(max(prims)), prim_per_tick=prims, fz_sum_over_mg=[min(fz), max(fz)],
+          tick_trace=trace)
+
+
+def cent_loop_setup(device, nT=CENT_LOOP_T):
+    """The port's examples/talos_centroidal.py at horizon nT in f32: (mpc,
+    mh, adapter); their construction runs the MPC's first solve and the
+    ID's dry run."""
+    from simple_mpc_tpu_torch.examples.talos_centroidal import setup
+
+    return setup(nT, device, torch.float32)
+
+
+def cent_loop(device, mpc, mh, idq, ticks):
+    """(log, q, v, wall s) of `ticks` closed-loop ticks of the example."""
+    from simple_mpc_tpu_torch.examples.talos_centroidal import run
+
+    t0 = time.perf_counter()
+    log = run(mpc, mh, idq, n_steps=ticks, log_every=0)
+    wall = time.perf_counter() - t0
+    q, v = np.stack(log["q"]), np.stack(log["v"])
+    return log, q, v, wall
+
+
+def phase_talos_centroidal_closed_loop(device, mpc, mh, idq):
+    """The Talos centroidal closed loop of the port's example
+    (examples/talos_centroidal.py: the biped gait at 0.1 m/s, CentroidalID
+    with the example's IDSettings and 60 ADMM steps, the simulator at dt
+    1e-3, 10 inner steps a tick), f32, at the configuration of JAX's own
+    gate (tests/test_examples_smoke.py:20-33: T=50, 25 ticks).  Gates:
+    finite; base z within 0.1 m of its start.  Prints loop_readings."""
+    t0 = time.perf_counter()
+    log, q, v, wall = cent_loop(device, mpc, mh, idq, CENT_LOOP_TICKS)
+    f = np.stack(log["f"])
+    check(np.isfinite(q).all() and np.isfinite(v).all(), "centroidal closed loop: non-finite")
+    z0 = q[0, 2]
+    check(bool((np.abs(q[:, 2] - z0) < 0.1).all()),
+          f"centroidal closed loop: fell: base z {q[:, 2].min():.3f}..{q[:, 2].max():.3f}")
+    phase("talos_centroidal_closed_loop", t0, T=CENT_LOOP_T, ticks=CENT_LOOP_TICKS,
+          inner_steps_per_tick=10, dtype="float32", wall_s=wall,
+          base_z=[float(q[:, 2].min()), float(q[:, 2].max())], base_z0=float(z0),
+          progress_m=float(q[-1, 0] - q[0, 0]), max_abs_v=float(np.abs(v).max()),
+          contact_fz_range=[float(f[..., 2].min()), float(f[..., 2].max())],
+          **loop_readings(mpc, mh, idq.cid, log, q, v))
+
+
+def phase_talos_centroidal_swing(device, mpc, mh, idq):
+    """The closed loop of phase_talos_centroidal_closed_loop (T=50) past its
+    horizon: CENT_SWING_TICKS ticks, the last CENT_SWING_SS of them with the
+    gait's first single support at stage 0, so that CentroidalID's swing
+    rows (weighted w_feet_tracking (1 - contact)) run on their inner steps.
+    Gates: finite; base z within 0.1 m of its start (JAX's band); at least
+    CENT_SWING_SS ticks with a foot out of contact at stage 0; on those, the
+    simulator's swing sole bears at most 5 % of m g by the last tick and
+    the stance sole carries m g within 35 % on average (a tick's one 1 ms
+    reading swings with the impacts).  Prints both soles' loads a tick and
+    loop_readings."""
+    t0 = time.perf_counter()
+    log, q, v, wall = cent_loop(device, mpc, mh, idq, CENT_SWING_TICKS)
+    f = np.stack(log["f"])
+    check(np.isfinite(q).all() and np.isfinite(v).all(), "centroidal swing loop: non-finite")
+    z0 = q[0, 2]
+    check(bool((np.abs(q[:, 2] - z0) < 0.1).all()),
+          f"centroidal swing loop: fell: base z {q[:, 2].min():.3f}..{q[:, 2].max():.3f}")
+    con = np.asarray(log["contacts"], bool)
+    ss = np.flatnonzero(~con.all(1))
+    check(len(ss) >= CENT_SWING_SS, f"centroidal swing loop: {len(ss)} ticks with a foot "
+          f"in swing at stage 0, not {CENT_SWING_SS}")
+    mg = mh.mass * 9.81
+    stance = np.where(con[ss], f[ss, :, 2], 0.0).sum(1) / mg
+    swing = np.where(con[ss], 0.0, f[ss, :, 2]).sum(1) / mg
+    check(swing[-1] <= 0.05, f"centroidal swing loop: the swing sole still bears "
+          f"{swing[-1]:.3f} m g")
+    check(abs(stance.mean() - 1.0) < 0.35,
+          f"centroidal swing loop: the stance sole carries {stance.mean():.3f} m g on average")
+    phase("talos_centroidal_swing", t0, T=CENT_LOOP_T, ticks=CENT_SWING_TICKS,
+          single_support_ticks=[int(ss[0]), int(ss[-1])], wall_s=wall,
+          base_z=[float(q[:, 2].min()), float(q[:, 2].max())], base_z0=float(z0),
+          stance_fz_over_mg=stance.tolist(), swing_fz_over_mg=swing.tolist(),
+          max_abs_v=float(np.abs(v).max()), **loop_readings(mpc, mh, idq.cid, log, q, v))
+
+
+def phase_talos_centroidal_loop_reading(device):
+    """(after the main paths) a reading at the example's own T=100: the
+    closed loop of phase_talos_centroidal_closed_loop for CENT_READ_TICKS
+    ticks, its loop_readings against the reference's 10 ms tick and 1 ms
+    inner-loop budgets; the base z range printed, not gated."""
+    t0 = time.perf_counter()
+    mpc, mh, idq = cent_loop_setup(device, CENT_READ_T)
+    log, q, v, wall = cent_loop(device, mpc, mh, idq, CENT_READ_TICKS)
+    r = loop_readings(mpc, mh, idq.cid, log, q, v)
+    phase("talos_centroidal_closed_loop_T100", t0, T=CENT_READ_T, ticks=CENT_READ_TICKS,
+          gated=False, wall_s=wall, finite=bool(np.isfinite(q).all()),
+          base_z=[float(q[:, 2].min()), float(q[:, 2].max())], base_z0=float(q[0, 2]),
+          tick_within_10ms=r["tick_p99_ms"] <= 10.0,
+          inner_step_within_1ms=r["inner_step_with_refs_p99_ms"] <= 1.0, **r)
+
+
 def drive_main_path(device):
-    """The main paths (phases 4-10, 12, 14-16, 18, 23-24, 26 and 27), each with the
+    """The main paths (phases 4-10, 12, 14-16, 18, 23-24, 26, 27 and 30-32), each with the
     launch counters zeroed just before it (after its set-up) and read just
     after; returns the launches of each kernel summed over them."""
     from simple_mpc_tpu_torch import kernels
@@ -3470,7 +4118,14 @@ def drive_main_path(device):
                              ("fd_latency", phase_latency, fd_latency_setup),
                              ("talos_fd_batched", phase_talos_fd_batched,
                               talos_fd_batched_setup),
-                             ("talos_fd_mpc", phase_talos_fd_mpc, None)):
+                             ("talos_fd_mpc", phase_talos_fd_mpc, None),
+                             ("talos_centroidal_batched", phase_talos_centroidal_batched,
+                              cent_batched_setup),
+                             ("talos_centroidal_mpc", phase_talos_centroidal_mpc, None),
+                             ("talos_centroidal_closed_loop",
+                              phase_talos_centroidal_closed_loop, cent_loop_setup),
+                             ("talos_centroidal_swing", phase_talos_centroidal_swing,
+                              cent_loop_setup)):
         args = setup(device) if setup else ()
         kernels.reset_launches()
         run(device, *args)
@@ -3492,7 +4147,9 @@ def drive_main_path(device):
 PHASES = ("kernels", "fd_kernels", "id_sim_kernels", "fixture", "talos_kernels",
           "talos_fixture", "talos_id_sim_kernels", "talos_closed_loop", "line_search_kernels",
           "tick_traces", "talos_tick_kernels", "k6_wide_kernels", "talos_fused", "fd_fused",
-          "talos_fd_kernels", "talos_fd_batched", "talos_fd_mpc", "talos_fd_closed_loop")
+          "talos_fd_kernels", "talos_fd_batched", "talos_fd_mpc", "talos_fd_closed_loop",
+          "talos_centroidal_kernels", "talos_centroidal_batched", "talos_centroidal_mpc",
+          "talos_centroidal_closed_loop")
 
 
 def main():
@@ -3525,6 +4182,7 @@ def main():
              if "registers" in ln or "smem" in ln]
     phase("build", t0, nvcc_seconds=round(info["seconds"], 3), library=os.path.relpath(
         info["path"], ROOT), ptxas=ptxas)
+    sass_job = None if phases is not None else locked_sass_start()
 
     if phases is not None:
         runs = dict(kernels=phase_kernels, fd_kernels=phase_fd_kernels,
@@ -3545,7 +4203,16 @@ def main():
                     talos_fd_batched=lambda d: phase_talos_fd_batched(
                         d, *talos_fd_batched_setup(d)),
                     talos_fd_mpc=phase_talos_fd_mpc,
-                    talos_fd_closed_loop=phase_talos_fd_closed_loop)
+                    talos_fd_closed_loop=phase_talos_fd_closed_loop,
+                    talos_centroidal_kernels=lambda d: phase_talos_centroidal_kernels(
+                        d, info["log"]),
+                    talos_centroidal_batched=lambda d: phase_talos_centroidal_batched(
+                        d, *cent_batched_setup(d)),
+                    talos_centroidal_mpc=phase_talos_centroidal_mpc,
+                    talos_centroidal_closed_loop=lambda d: (
+                        phase_talos_centroidal_closed_loop(d, *cent_loop_setup(d)),
+                        phase_talos_centroidal_swing(d, *cent_loop_setup(d)),
+                        phase_talos_centroidal_loop_reading(d)))
         for name in phases:
             runs[name](device)
         print(smi, flush=True)
@@ -3563,8 +4230,10 @@ def main():
     tickres = phase_talos_tick_kernels(device)
     phase_k6_wide_kernels(device)
     fdwres = phase_talos_fd_kernels(device, info["log"])
+    centres = phase_talos_centroidal_kernels(device, info["log"], sass_job)
     launches = drive_main_path(device)
     phase_talos_fd_closed_loop(device)
+    phase_talos_centroidal_loop_reading(device)
 
     replaces = dict(
         stage_linearize=("linearize.cu", "simple_mpc_tpu/solver/proxddp.py:271"),
@@ -3596,16 +4265,26 @@ def main():
         wide_fd_stage_linearize=("fulldyn_wide.cu", "simple_mpc_tpu/ocp/fulldynamics.py:194"),
         wide_fd_stage_eval=("fulldyn_wide.cu", "simple_mpc_tpu/solver/proxddp.py:183"),
         wide_fd_dynamics=("fulldyn_wide.cu", "simple_mpc_tpu/ops/soa_dyn.py:199"),
+        centroidal_stage_linearize=("centroidal.cu", "simple_mpc_tpu/solver/proxddp.py:222"),
+        centroidal_stage_eval=("centroidal.cu", "simple_mpc_tpu/solver/proxddp.py:197"),
+        centroidal_term_linearize=("centroidal.cu", "simple_mpc_tpu/solver/proxddp.py:352"),
+        centroidal_state_derivative=("centroidal.cu", "simple_mpc_tpu/ocp/centroidal.py:251"),
+        vector_candidate_integrate=("centroidal.cu", "simple_mpc_tpu/solver/proxddp.py:470"),
+        vector_state_difference=("centroidal.cu", "simple_mpc_tpu/solver/proxddp.py:527"),
+        centroidal_line_search_select=("linesearch_centroidal.cu",
+                                       "simple_mpc_tpu/solver/proxddp.py:529"),
+        centroidal_id_assemble=("id_centroidal.cu", "simple_mpc_tpu/id/centroidal_id.py:70"),
     )
     # line_search_select also replaces the terminal AL cost and merit
     # (:207-217) and prim and the BCL update (:546-600)
     also = {k: ["simple_mpc_tpu/solver/proxddp.py:207", "simple_mpc_tpu/solver/proxddp.py:546"]
-            for k in ("line_search_select", "wide_line_search_select")}
+            for k in ("line_search_select", "wide_line_search_select",
+                      "centroidal_line_search_select")}
     # each kernel's readings from the phase that checked it (phase 3's
     # K3 and K4 are Go2's, qp_admm Go2's; the Talos phases' are printed
     # there); the closed loops' kernels at B=1
     checked = (kres["float32"], fdres["float32"], talres["float32"], lsres["float32"],
-               tickres["float32"], fdwres["float32"])
+               tickres["float32"], fdwres["float32"], centres["float32"])
     loops = (idres["float32"], talidres["float32"])
     f32 = {k: {n: next(c[n][k] for c in checked if k in c["errs"])
                for n in ("abs_err", "times", "bounds")}
@@ -3616,7 +4295,7 @@ def main():
     shape = dict(parallel_riccati_backward=(1, T), fd_dynamics=(1, 1), qp_admm=(1, 1),
                  id_assemble=(1, 1), sim_step=(1, 1), state_derivative=(1, 1),
                  wide_state_derivative=(1, 1), wide_id_assemble=(1, 1),
-                 wide_sim_step=(1, 1))
+                 wide_sim_step=(1, 1), centroidal_id_assemble=(B, 1))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"simple_mpc_tpu_torch/csrc/{src}",
          "replaces": rep, "launches": launches[name],

@@ -1,7 +1,7 @@
 """Canonical robot + OCP configurations mirroring the reference examples.
 
 Port of the Go2 kinodynamics and full-dynamics entries and the Talos
-kinodynamics entry of `simple_mpc_tpu.configs` (the settings dictionaries
+kinodynamics and centroidal entries of `simple_mpc_tpu.configs` (the settings dictionaries
 of examples/go2_kinodynamics.py, examples/go2_fulldynamics.py and the
 Talos parity fixture), the Talos full-dynamics settings of
 examples/talos_fulldynamics.py, the fused-tick engines of the JAX package's
@@ -195,6 +195,35 @@ def make_talos_fulldynamics(T: int = 100, device="cuda", dtype=torch.float64,
     return ocp, mh, x0
 
 
+def talos_centroidal_config(mh: RobotModelHandler, force_size: int = 6) -> dict:
+    """examples/talos_centroidal.py settings (JAX `configs.talos_centroidal_config`);
+    `force_size` 3 gives each foot a point force (w_u sized to match)."""
+    return dict(
+        timestep=0.01, w_u=np.ones(mh.n_feet * force_size) * 1e-4, w_com=np.zeros(3),
+        w_linear_mom=np.diag([0.01, 0.01, 100.0]),
+        w_angular_mom=np.diag([0.1, 0.1, 1000.0]),
+        w_linear_acc=0.01 * np.eye(3), w_angular_acc=0.01 * np.eye(3),
+        gravity=np.array([0, 0, -9.81]),
+        mu=0.8, Lfoot=0.1, Wfoot=0.075, force_size=force_size,
+    )
+
+
+def make_talos_centroidal(T: int = 100, device="cuda", dtype=torch.float64, force_size=6):
+    """Talos centroidal (x = [com; h_lin; h_ang], two quad feet with 6D
+    wrenches, or point forces with `force_size=3`), horizon T, standing at
+    half_sitting, with its problem built on `device` in `dtype` as
+    examples/talos_centroidal.py builds it.  Returns (ocp, mh, x0), x0 the
+    9-dim centroidal state."""
+    from .models.handler import RobotDataHandler
+    from .ocp.centroidal import CentroidalOCP
+
+    mh = talos_handler()
+    ocp = CentroidalOCP(talos_centroidal_config(mh, force_size), mh, device, dtype)
+    x0 = RobotDataHandler(mh).get_centroidal_state().numpy()
+    ocp.create_problem(x0, T, force_size, -9.81, False)
+    return ocp, mh, x0
+
+
 def _walking(mpc, plan, walk, mu_init, parallel):
     """`mpc` with its tick solver one iteration with `mu_init`, serial
     Riccati (K3) or with `parallel` the associative scan (K6), the cyclic
@@ -311,5 +340,20 @@ def talos_fd_mpc(T: int = 100, device="cuda", dtype=torch.float32, gait=None,
     from .examples.talos_kinodynamics import WALK, biped
 
     mpc, mh = setup(T, device, dtype, **mpc_settings)
+    return _walking(mpc, biped(mh.feet_names) if gait is None else gait, WALK,
+                    mpc.settings.mu_init, False)
+
+
+def talos_centroidal_mpc(T: int = 100, device="cuda", dtype=torch.float32, gait=None,
+                         **mpc_settings):
+    """The host MPC of examples/talos_centroidal.py: Talos centroidal with the
+    example's MPCSettings (T_fly 80, T_contact 20, apex 0.1 m, mu_init 1e-8,
+    TOL 1e-4), walking the biped gait 20/80/20/80 at 0.1 m/s, one iteration
+    a tick on serial Riccati.  `gait` and `mpc_settings` as in
+    `talos_mpc`."""
+    from .examples.talos_centroidal import setup_mpc
+    from .examples.talos_kinodynamics import WALK, biped
+
+    mpc, mh = setup_mpc(T, device, dtype, **mpc_settings)
     return _walking(mpc, biped(mh.feet_names) if gait is None else gait, WALK,
                     mpc.settings.mu_init, False)

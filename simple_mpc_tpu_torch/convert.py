@@ -36,7 +36,8 @@ def problem_from_numpy(ocp, stage_params, term_params, x0, device,
     """The port's Problem for `ocp` from the JAX package's stage and
     terminal parameter NamedTuples (any objects with the same field names
     whose leaves convert with numpy.asarray) and x0: `KinoStageParams` /
-    `KinoTermParams` or `FullStageParams` / `FullTermParams`, as the OCP's
+    `KinoTermParams`, `FullStageParams` / `FullTermParams` or
+    `CentroidalStageParams` / `CentroidalTermParams`, as the OCP's
     `stage_params_type` and `term_params_type` say.  Leading batch axes are
     kept as they are."""
     return Problem(x0=_tensor(x0, device, dtype),
@@ -97,14 +98,18 @@ def carry_to_numpy(carry) -> dict:
 
 
 ID_TARGETS = ("q_t", "v_t", "a_t", "contacts", "f_t")
+# a CentroidalID's targets beyond the kinodynamics ones
+CID_TARGETS = ("com_t", "com_v_t", "feet_p_t", "feet_R_t", "feet_v_t")
 
 
 def id_state_from_numpy(idsolver, targets, warm=None):
-    """Set a port `KinodynamicsID`'s targets and QP warm start from the JAX
-    package's `KinodynamicsID._targets` (a dict with the `ID_TARGETS` keys,
-    one robot) and `_qp_warm` (None, or (z, y) of one robot), as numpy
-    arrays, in the port ID's device and dtype."""
+    """Set a port `KinodynamicsID`'s (or `CentroidalID`'s) targets and QP
+    warm start from the JAX package's `_targets` (a dict with the
+    `ID_TARGETS` keys, and the `CID_TARGETS` ones for a CentroidalID, one
+    robot) and `_qp_warm` (None, or (z, y) of one robot), as numpy arrays,
+    in the port ID's device and dtype."""
     dev, dt = idsolver.device, idsolver.dtype
-    idsolver._targets.update({k: _tensor(targets[k], dev, dt) for k in ID_TARGETS})
+    keys = ID_TARGETS + (CID_TARGETS if "com_t" in idsolver._targets else ())
+    idsolver._targets.update({k: _tensor(targets[k], dev, dt) for k in keys})
     idsolver._qp_warm = None if warm is None else tuple(_tensor(a, dev, dt)[None]
                                                         for a in warm)

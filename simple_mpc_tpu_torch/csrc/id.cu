@@ -55,6 +55,26 @@
 #define SMPC_ID_FS 3
 #endif
 
+// Hooks for csrc/id_centroidal.cu (CentroidalID's CoM and swing-foot rows
+// and its orientation-only base task), empty here: the rigid-body part's
+// extra fields and their computation, the kernel's, the launcher's and the
+// C entry point's extra parameters and arguments, the extra cost rows (their
+// count, at most, and a statement before the kinodynamics rows that fills
+// them), the base rows' weight mask and a call before the launch.
+#ifndef SMPC_ID_RIGID_FIELDS
+#define SMPC_ID_RIGID_FIELDS
+#define SMPC_ID_RIGID_EXTRA
+#define SMPC_ID_KERNEL_PARAMS
+#define SMPC_ID_LAUNCH_PARAMS
+#define SMPC_ID_LAUNCH_ARGS
+#define SMPC_ID_CALL_ARGS
+#define SMPC_ID_EXTRA_ROWS
+#define SMPC_ID_EXTRA_ROWS_MAX
+#define SMPC_ID_EXTRA_ROW
+#define SMPC_ID_BASE_MASK
+#define SMPC_ID_PRELAUNCH
+#endif
+
 namespace smpc {
 
 // Offsets into the task constants P (kernels.py `_id_params`).
@@ -80,6 +100,7 @@ struct IdRigid {
   F jdvb[6], vb[6];    // its J-dot v and J v
   F e6[6];             // [p_t - p_b; R_b log3(R_b' R_t)]
   F vt[6], at[6];      // the base target velocity and acceleration, world-aligned
+  SMPC_ID_RIGID_FIELDS
 };
 
 // LWA Jacobian rows (nrow = 3: linear; 6: [lin; ang]) of the frame at world
@@ -144,6 +165,7 @@ SMPC_HD void id_rigid(const Dims& D, const F* C, const F* q, const F* v, const F
     R.at[i] = al[i];
     R.at[3 + i] = aw[i];
   }
+  SMPC_ID_RIGID_EXTRA
 }
 
 }  // namespace smpc
@@ -163,7 +185,7 @@ id_assemble_kernel(Dims D, const F* __restrict__ C, const F* __restrict__ P,
                    const F* __restrict__ q, const F* __restrict__ v,
                    const F* __restrict__ q_t, const F* __restrict__ v_t,
                    const F* __restrict__ a_t, const F* __restrict__ contacts,
-                   const F* __restrict__ f_t, int eq_mode, int n_cone, int m,
+                   const F* __restrict__ f_t, SMPC_ID_KERNEL_PARAMS int eq_mode, int n_cone, int m,
                    F* __restrict__ H, F* __restrict__ g, F* __restrict__ A,
                    F* __restrict__ l, F* __restrict__ u, F* __restrict__ Mo,
                    F* __restrict__ ho, F* __restrict__ JcT) {
@@ -189,7 +211,7 @@ id_assemble_kernel(Dims D, const F* __restrict__ C, const F* __restrict__ P,
   const int r_base = posture ? nu : 0;
   const int r_force = r_base + (base ? 6 : 0);
   const int r_motion = r_force + (force ? nc : 0);
-  const int nr = r_motion + (motion ? nc : 0);
+  const int nr = r_motion + (motion ? nc : 0) SMPC_ID_EXTRA_ROWS;
   F* Jr = reinterpret_cast<F*>(smem_raw);  // nr x nz
   F* wr = Jr + (size_t)nr * nz;            // nr: w
   F* wr0 = wr + nr;                        // nr: w r0
@@ -199,6 +221,7 @@ id_assemble_kernel(Dims D, const F* __restrict__ C, const F* __restrict__ P,
   const F kd_c = P[IdParams::kd_contact];
   for (int r = tid; r < nr; r += nth) {
     F w, r0;
+    SMPC_ID_EXTRA_ROW
     if (r < r_base) {  // posture
       const F kp = P[IdParams::kp_posture], kd = P[IdParams::kd_posture];
       const F a_des = at[6 + r] + kp * (qt[7 + r] - qb[7 + r]) + kd * (vt[6 + r] - vb[6 + r]);
@@ -210,7 +233,7 @@ id_assemble_kernel(Dims D, const F* __restrict__ C, const F* __restrict__ P,
       const F kp = P[IdParams::kp_base], kd = P[IdParams::kd_base];
       const F a_des = R.at[i] + kp * R.e6[i] + kd * (R.vt[i] - R.vb[i]);
       for (int d = 0; d < nv; ++d) Jr[r * nz + d] = R.Jb[i * nv + d];
-      w = P[IdParams::w_base];
+      w = P[IdParams::w_base] SMPC_ID_BASE_MASK;
       r0 = R.jdvb[i] - a_des;
     } else if (r < r_motion) {  // force regularization
       const int i = r - r_force;
@@ -315,20 +338,22 @@ id_assemble_kernel(Dims D, const F* __restrict__ C, const F* __restrict__ P,
 template <class F>
 int launch_id(const int* dims, const void* C, const void* P, const void* q, const void* v,
               const void* q_t, const void* v_t, const void* a_t, const void* contacts,
-              const void* f_t, int nbatch, int eq_mode, int n_cone, int m, void* H, void* g,
-              void* A, void* l, void* u, void* M, void* h, void* JcT, void* stream) {
+              const void* f_t, SMPC_ID_LAUNCH_PARAMS int nbatch, int eq_mode, int n_cone, int m,
+              void* H, void* g, void* A, void* l, void* u, void* M, void* h, void* JcT,
+              void* stream) {
   Dims D;
   std::memcpy(&D, dims, sizeof(Dims));
   if (D.nk > smpc::kMaxK || D.nv > smpc::kMaxV || SMPC_ID_FS > SMPC_MAX_FORCE_SIZE)
     return (int)cudaErrorInvalidValue;
   const int nz = D.nv + SMPC_ID_FS * D.nk;
-  const int nr = D.nu + 6 + 2 * SMPC_ID_FS * D.nk;  // at most: every cost row
+  const int nr = D.nu + 6 + 2 * SMPC_ID_FS * D.nk SMPC_ID_EXTRA_ROWS_MAX;  // at most: every cost row
   const size_t smem = ((size_t)nr * nz + 2 * (size_t)nr) * sizeof(F);
+  SMPC_ID_PRELAUNCH
   id_assemble_kernel<F><<<nbatch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       D, static_cast<const F*>(C), static_cast<const F*>(P), static_cast<const F*>(q),
       static_cast<const F*>(v), static_cast<const F*>(q_t), static_cast<const F*>(v_t),
       static_cast<const F*>(a_t), static_cast<const F*>(contacts),
-      static_cast<const F*>(f_t), eq_mode, n_cone, m, static_cast<F*>(H),
+      static_cast<const F*>(f_t), SMPC_ID_LAUNCH_ARGS eq_mode, n_cone, m, static_cast<F*>(H),
       static_cast<F*>(g), static_cast<F*>(A), static_cast<F*>(l), static_cast<F*>(u),
       static_cast<F*>(M), static_cast<F*>(h), static_cast<F*>(JcT));
   return (int)cudaGetLastError();
@@ -342,10 +367,12 @@ extern "C" {
   int smpc_id_assemble_##sfx(const int* dims, const void* C, const void* P, const void* q, \
                              const void* v, const void* q_t, const void* v_t,              \
                              const void* a_t, const void* contacts, const void* f_t,       \
+                             SMPC_ID_LAUNCH_PARAMS                                         \
                              int nbatch, int eq_mode, int n_cone, int m, void* H, void* g, \
                              void* A, void* l, void* u, void* M, void* h, void* JcT,       \
                              void* stream) {                                               \
-    return launch_id<F>(dims, C, P, q, v, q_t, v_t, a_t, contacts, f_t, nbatch, eq_mode,   \
+    return launch_id<F>(dims, C, P, q, v, q_t, v_t, a_t, contacts, f_t, SMPC_ID_CALL_ARGS  \
+                        nbatch, eq_mode,                                                   \
                         n_cone, m, H, g, A, l, u, M, h, JcT, stream);                      \
   }
 

@@ -65,6 +65,12 @@
 
 #include "stage.cuh"
 
+// The select's tangent size from nq and nv: 2 nv on the multibody phase
+// space; csrc/linesearch_centroidal.cu gives its vector space's nq + nv.
+#ifndef SMPC_LS_NDX
+#define SMPC_LS_NDX(nq, nv) 2 * nv
+#endif
+
 namespace {
 
 using smpc::Dims;
@@ -166,7 +172,7 @@ line_search_select_kernel(
   __shared__ F s_red[kSelThreads / 32];
   __shared__ int s_best, s_ok;
 
-  const int nq = D.nq, nv = D.nv, nu = D.nu, nx = nq + nv, ndx = 2 * nv;
+  const int nq = D.nq, nv = D.nv, nu = D.nu, nx = nq + nv, ndx = SMPC_LS_NDX(nq, nv);
   const int n_eq = D.n_eq, n_in = D.n_in, n_te = D.n_term_eq;
   const size_t b = blockIdx.x;
   const int tid = threadIdx.x, nth = blockDim.x, warp = tid / 32, lane = tid % 32;

@@ -3,7 +3,8 @@
 Port of the JAX package's `examples/loop.py` (the reference examples'
 control architecture, examples/go2_kinodynamics.py:206-295): the MPC tick at
 100 Hz, the inner loop at 1 kHz with state/acceleration interpolation,
-low-level torques from the inverse-dynamics QP (kinodynamics) or Riccati
+low-level torques from the inverse-dynamics QP (kinodynamics, and centroidal
+with the 9-dim state interpolated linearly) or Riccati
 feedback u = us[0] - K0 difference(x, xs[0]) (full dynamics; the
 reference's talos_fulldynamics.py:203-205, where the JAX package's loop
 swaps the difference's arguments), and the in-framework rigid-contact
@@ -49,10 +50,11 @@ def riccati_feedback(mpc, model, q, v):
 def run_closed_loop(mpc, mh, *, id_solver=None, friction=None, n_steps=50, n_simu=10,
                     walk_velocity=None, gait=None, log_every=10, plant=None):
     """Run the MPC + inner loop + simulator closed loop on the MPC's device
-    and dtype; returns the log (host numpy per tick: q, v, f, and on the
-    host clock the MPC iteration `solve_time`, the tick's references and
-    interpolated targets `refs_time`, and the inner steps' mean
-    `inner_time`, up to the tick's one host copy).  The n_simu inner
+    and dtype; returns the log (host numpy per tick: q, v, f, the contact
+    state at stage 0 `contacts`, and on the host clock the MPC iteration
+    `solve_time`, the tick's references and interpolated targets
+    `refs_time`, and the inner steps' mean `inner_time`, up to the tick's
+    one host copy).  The n_simu inner
     steps' targets are interpolated in one lane-batched call a tick.
     `id_solver=None` selects Riccati feedback (full dynamics).  `plant`
     replaces the simulator (the same `step(q, v, tau)`), as in the JAX
@@ -72,7 +74,10 @@ def run_closed_loop(mpc, mh, *, id_solver=None, friction=None, n_steps=50, n_sim
 
     x = torch.as_tensor(np.asarray(mh.reference_state), dtype=dtype, device=device)
     q, v = x[:nq].clone(), x[nq:].clone()
-    log = dict(q=[], v=[], f=[], solve_time=[], refs_time=[], inner_time=[])
+    # the centroidal formulation's 9-dim state: plain linear interpolation,
+    # and the ID is given it in both state slots
+    multibody = mpc.xs.shape[1] == nq + nv
+    log = dict(q=[], v=[], f=[], contacts=[], solve_time=[], refs_time=[], inner_time=[])
     delays = [sub * 1e-3 for sub in range(n_simu)]
 
     for step in range(n_steps):
@@ -90,13 +95,17 @@ def run_closed_loop(mpc, mh, *, id_solver=None, friction=None, n_steps=50, n_sim
             contacts_t = torch.as_tensor(np.asarray(contacts, np.float64), dtype=dtype,
                                          device=device)
             f_t = torch.stack([oh.get_reference_force(0, f) for f in mh.feet_names])
-            x_i = interp.interpolate_state(delays, 0.01, xs)
+            x_i = (interp.interpolate_state(delays, 0.01, xs) if multibody
+                   else interp.interpolate_linear(delays, 0.01, xs))
             a_i = interp.interpolate_linear(delays, 0.01, aa)
 
         t2 = time.perf_counter()
         for sub in range(n_simu):
             if id_solver is not None:
-                id_solver.set_target(x_i[sub, :nq], x_i[sub, nq:], a_i[sub], contacts_t, f_t)
+                if multibody:
+                    id_solver.set_target(x_i[sub, :nq], x_i[sub, nq:], a_i[sub], contacts_t, f_t)
+                else:
+                    id_solver.set_target(x_i[sub], x_i[sub], a_i[sub], contacts_t, f_t)
                 tau = id_solver.solve(step * 0.01 + delays[sub], q, v)
             else:
                 tau = riccati_feedback(mpc, model, q, v)
@@ -110,6 +119,7 @@ def run_closed_loop(mpc, mh, *, id_solver=None, friction=None, n_steps=50, n_sim
         log["q"].append(host[:nq])
         log["v"].append(host[nq: nq + nv])
         log["f"].append(host[nq + nv:].reshape(-1, 3))
+        log["contacts"].append(list(contacts))
         if log_every and step % log_every == 0:
             print(f"step {step:4d}: base_z={log['q'][-1][2]:.4f} "
                   f"|v|={np.abs(log['v'][-1]).max():.3f} "

@@ -1,2 +1,2 @@
-"""The inverse-dynamics layer: the ADMM QP (`qp`) and the kinodynamics ID
-(`kinodynamics_id`)."""
+"""The inverse-dynamics layer: the ADMM QP (`qp`), the kinodynamics ID
+(`kinodynamics_id`) and the centroidal ID (`centroidal_id`)."""

@@ -22,8 +22,9 @@ robots in the lanes; its J-dot v is a `torch.func.jvp` along the flow
 q' = v, as the JAX package takes it.  Point feet take 3D forces and the
 friction pyramid; quad feet (Talos's soles) 6D wrenches, their
 LOCAL_WORLD_ALIGNED [lin; ang] Jacobian rows and the 17-row wrench cone
-of `ocp/cones.py` (`IDSettings.Lfoot`, `Wfoot`).  `CentroidalID` is not
-ported.
+of `ocp/cones.py` (`IDSettings.Lfoot`, `Wfoot`).  `CentroidalID`
+(`id/centroidal_id.py`) adds its tasks through `_extra_tasks` and masks the
+base task with `_base_mask`.
 """
 from __future__ import annotations
 
@@ -96,6 +97,8 @@ class KinodynamicsID:
         self.max_f = settings.contact_weight_ratio_max * self.weight
         self.min_f = settings.contact_weight_ratio_min * self.weight
         self.feet_fids = list(model_handler.feet_frame_ids)
+        if not hasattr(self, "_base_mask"):
+            self._base_mask = np.ones(6)  # CentroidalID masks to orientation
         self._cone_mat = (friction_cone_mat(settings.friction_coefficient)
                           if self.fdim == 3 else
                           wrench_cone_mat(settings.friction_coefficient,
@@ -108,7 +111,8 @@ class KinodynamicsID:
         x_ref = np.asarray(model_handler.reference_state)
         f0 = np.zeros((self.nk, self.fdim))
         f0[:, 2] = self.weight / self.nk
-        self._targets = {}
+        if not hasattr(self, "_targets"):
+            self._targets = {}
         self.set_target(x_ref[: self.nq], x_ref[self.nq:], np.zeros(self.nv),
                         [True] * self.nk, f0)
         self._last = None
@@ -238,7 +242,8 @@ class KinodynamicsID:
             Jb[:, :, :nv] = Jb6.permute(2, 0, 1)
             rows_J.append(Jb)
             rows_r0.append((jdotv_b - a_des_b).T)
-            rows_w.append(torch.full((nb, 6), w, dtype=dtype, device=device))
+            mask = torch.as_tensor(self._base_mask, dtype=dtype, device=device)
+            rows_w.append(w * mask.expand(nb, 6))
 
         # contact force regularization (w_contact_force, setTarget refs)
         act_rows = torch.repeat_interleave(contacts, fd, dim=-1)  # (B, nk*fd)

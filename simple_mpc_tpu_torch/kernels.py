@@ -64,6 +64,21 @@ compiled again over csrc/stage_wide.cuh) take what the Go2 units refuse:
 6D contacts and up to WIDE_MAX_JOINTS joints (Talos); `body_route` and
 `stage_route` decide, and `id_assemble`, `sim_step` and
 `state_derivative` hand a wide model's CUDA tensors to them.
+The centroidal formulation's kernels (csrc/centroidal.cu over
+csrc/centroidal.cuh) replace the JAX solver's generic path over
+`simple_mpc_tpu/ocp/centroidal.py`: `centroidal_stage_linearize`
+(`ProxDDPSolver._linearize_stage` with `_stage_bundle`),
+`centroidal_stage_eval` (`_eval_traj`'s generic branch),
+`centroidal_term_linearize` (`_linearize_term`), `centroidal_state_derivative`
+(`CentroidalOCP.state_derivative`), and K4's integrate and initial gap on a
+vector space, `vector_candidate_integrate` and `vector_state_difference`;
+`centroidal_line_search_select` (csrc/linesearch_centroidal.cu:
+linesearch.cu's select over centroidal.cuh) its select.  `stage_route`
+returns "centroidal" for such an OCP and the solver's wrappers hand it
+over.  `centroidal_id_assemble` (csrc/id_centroidal.cu: id.cu over
+csrc/stage_wide.cuh with CentroidalID's CoM and swing rows in id.cu's
+hooks) replaces `simple_mpc_tpu/id/centroidal_id.py` `_extra_tasks` inside
+`_assemble_core`; `id_assemble` hands a `CentroidalID` over.
 Each source file states what bounds the kernel on the card and what its
 design does about it; csrc/stage.cuh holds the rigid-body algebra the
 K1/K2/K5/K9 kernels share.
@@ -108,14 +123,15 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("riccati.cu", "parallel_riccati.cu", "rollout.cu", "linearize.cu", "fulldyn.cu",
            "tick.cu", "qp.cu", "id.cu", "sim.cu", "linearize_wide.cu", "acc.cu", "acc_wide.cu",
            "id_wide.cu", "sim_wide.cu", "linesearch.cu", "linesearch_wide.cu",
-           "tick_wide.cu", "fulldyn_wide.cu")
-HEADERS = ("stage.cuh", "fulldyn.cuh", "stage_wide.cuh", "fulldyn_wide.cuh")
+           "tick_wide.cu", "fulldyn_wide.cu", "centroidal.cu", "linesearch_centroidal.cu",
+           "id_centroidal.cu")
+HEADERS = ("stage.cuh", "fulldyn.cuh", "stage_wide.cuh", "fulldyn_wide.cuh", "centroidal.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # units built without FMA contraction, so that they round as the plain
 # torch ops they replace did on the card: the line search picks the f32
 # iterate, and the Talos f32 fixture re-solve follows every rounding
-NO_FMA = ("linesearch.cu", "linesearch_wide.cu")
+NO_FMA = ("linesearch.cu", "linesearch_wide.cu", "linesearch_centroidal.cu")
 
 _lib = None
 
@@ -209,6 +225,14 @@ def _library() -> ctypes.CDLL:
             state_difference=[I] * 2 + [P] * 2 + [I] + [P] * 2,
             line_search_select=[P] * 4 + [I] * 3 + [P] * 2,
             wide_line_search_select=[P] * 4 + [I] * 3 + [P] * 2,
+            centroidal_stage_linearize=[P] * 13 + [I] * 2 + [P] * 9,
+            centroidal_stage_eval=[P] * 12 + [I] * 3 + [P] * 4,
+            centroidal_term_linearize=[P] * 5 + [I] + [P] * 3,
+            centroidal_ode=[P] * 6 + [I] + [P] * 2,
+            vector_candidate_integrate=[I] * 2 + [P] * 5 + [I] * 3 + [P] * 3,
+            vector_state_difference=[I] + [P] * 2 + [I] + [P] * 2,
+            centroidal_line_search_select=[P] * 4 + [I] * 3 + [P] * 2,
+            centroidal_id_assemble=[P] * 15 + [I] * 4 + [P] * 9,
         )
         for name, args in signatures.items():
             for dt in ("f32", "f64"):
@@ -216,7 +240,8 @@ def _library() -> ctypes.CDLL:
                 fn.argtypes = args
                 fn.restype = I
         for fn, want in ((lib.smpc_dims_ints, _DIMS_INTS),
-                         (lib.smpc_wide_dims_ints, _WIDE_DIMS_INTS)):
+                         (lib.smpc_wide_dims_ints, _WIDE_DIMS_INTS),
+                         (lib.smpc_centroidal_dims_ints, _CENT_DIMS_INTS)):
             fn.restype = I
             if fn() != want:
                 raise RuntimeError(f"{fn.__name__}: Dims holds {fn()} ints, "
@@ -552,6 +577,15 @@ _DIMS_FIELDS = _dims_fields(MAX_JOINTS)
 _DIMS_INTS = sum(n for _, n in _DIMS_FIELDS)
 _WIDE_DIMS_FIELDS = _dims_fields(WIDE_MAX_JOINTS)  # smpc_wide::Dims
 _WIDE_DIMS_INTS = sum(n for _, n in _WIDE_DIMS_FIELDS)
+# centroidal.cuh `smpc_cent::Dims`: nq = 9 and nv = 0 make the line search's
+# nx = nq + nv and its tangent (SMPC_LS_NDX) the vector space's 9
+_CENT_DIMS_FIELDS = tuple((f, 1) for f in (
+    "nq", "nv", "nu", "nk", "fs", "n_cone", "n_cost", "n_eq", "n_in", "n_term_cost",
+    "n_term_eq", "o_w", "o_wterm", "o_g", "o_cone", "o_scalars"))
+_CENT_DIMS_INTS = len(_CENT_DIMS_FIELDS)
+CENT_MAX_FEET = 8  # centroidal.cuh kMaxK
+CENT_MAX_U = 24  # centroidal.cuh kMaxU: nu = force size x feet
+CENT_MAX_IN = 68  # centroidal.cuh kMaxIn: cone rows
 _consts_cache: dict = {}
 
 
@@ -576,6 +610,21 @@ def _require_body_layout(m, nk: int, what: str = "the stage kernels",
                                   f"and {MAX_FEET} feet")
 
 
+def _is_centroidal(ocp) -> bool:
+    return getattr(ocp, "centroidal", False)
+
+
+def _require_centroidal(ocp):
+    """csrc/centroidal.cu's limits: force size 3 or 6, CENT_MAX_FEET feet,
+    CENT_MAX_U controls and CENT_MAX_IN cone rows."""
+    if ocp.fs not in (3, 6):
+        raise NotImplementedError(f"the centroidal kernels take force size 3 or 6, got {ocp.fs}")
+    if ocp.nk > CENT_MAX_FEET or ocp.nu > CENT_MAX_U or ocp.n_in > CENT_MAX_IN:
+        raise NotImplementedError(
+            f"the centroidal kernels take at most {CENT_MAX_FEET} feet, {CENT_MAX_U} "
+            f"controls and {CENT_MAX_IN} cone rows, got {ocp.nk}, {ocp.nu} and {ocp.n_in}")
+
+
 def _require_stage_layout(ocp):
     """The stage kernels' model (`_require_body_layout`) with point feet."""
     _require_body_layout(ocp.model, ocp.nk)
@@ -594,8 +643,12 @@ def stage_route(ocp) -> str:
     or csrc/fulldyn_wide.cu) for force size 3 or 6, at most
     WIDE_MAX_JOINTS joints, MAX_FEET feet, WIDE_THREADS tangent directions
     (ndx + nu) and, on full dynamics, FD_WIDE_ROWS contact rows (8 point
-    feet, or 4 feet with 6D contacts).  Raises NotImplementedError beyond
-    those."""
+    feet, or 4 feet with 6D contacts).  A centroidal OCP goes to
+    "centroidal" (csrc/centroidal.cu, `_require_centroidal`).  Raises
+    NotImplementedError beyond those."""
+    if _is_centroidal(ocp):
+        _require_centroidal(ocp)
+        return "centroidal"
     _require_body_layout(ocp.model, ocp.nk, max_joints=WIDE_MAX_JOINTS)
     ndir = 2 * ocp.nv + ocp.nu
     if ocp.fs == 3 and ocp.model.njoints <= MAX_JOINTS and ndir <= LIN_THREADS:
@@ -720,7 +773,8 @@ def _stage_params(sp, nb, T, nk, nx, nu, dtype, device, fd=False, wide=False, fs
 def _linearize_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu):
     """Plain PyTorch twin of K1+K2: the stage bundle on N = B*T lanes and
     its forward-mode tangents along the 18 dq, 18 dv and 24 du basis
-    directions (`torch.func.jvp` under `torch.func.vmap`), then the
+    directions (`torch.func.jvp` under `torch.func.vmap`; on a vector space,
+    the centroidal one, along its ndx state directions and nu), then the
     Gauss-Newton products.  sp: stage params with leading (B, T).  Returns
     the LQ data A, B, d, qx, qu, Qxx, Quu, Qux with leading (B, T)."""
     space, ocp = solver.space, solver.ocp
@@ -736,14 +790,11 @@ def _linearize_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu):
     su = solver._su(xs)
     su = None if su is None else su[:, None]
 
-    def bundle(dq, dv, du):
-        Xp = space.integrate_parts_soa(X, dq, dv)
+    def run(Xp, du):
         r_all, w_all, _, _, xnext = solver._stage_bundle_soa(
             Xp, U + (du if su is None else su * du), P, LE, LI, mu_l)
         return r_all, space.difference_soa(Xn, xnext), w_all
 
-    zq = torch.zeros((split, N), dtype=dtype, device=device)
-    zv = torch.zeros((ndx - split, N), dtype=dtype, device=device)
     zu = torch.zeros((nu, N), dtype=dtype, device=device)
 
     def tangents(fn, z):
@@ -751,12 +802,23 @@ def _linearize_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu):
         basis = torch.eye(n, dtype=dtype, device=device)[..., None].expand(n, n, N)
         return vmap(lambda t: jvp(fn, (z,), (t,))[1])(basis)
 
-    r0, d0, w0 = bundle(zq, zv, zu)
-    Jr_q, Jd_q = tangents(lambda a: bundle(a, zv, zu)[:2], zq)
-    Jr_v, Jd_v = tangents(lambda a: bundle(zq, a, zu)[:2], zv)
-    Jr_u, Jd_u = tangents(lambda a: bundle(zq, zv, a)[:2], zu)
-    Jr = torch.cat([Jr_q, Jr_v, Jr_u], dim=0)  # (ndx+nu, nr, N)
-    Jd = torch.cat([Jd_q, Jd_v, Jd_u], dim=0)  # (ndx+nu, ndx, N)
+    if split is None:  # a vector space (centroidal): one block of state tangents
+        zx = torch.zeros((ndx, N), dtype=dtype, device=device)
+        r0, d0, w0 = run(X, zu)
+        Jr_x, Jd_x = tangents(lambda a: run(space.integrate_soa(X, a), zu)[:2], zx)
+    else:
+        zq = torch.zeros((split, N), dtype=dtype, device=device)
+        zv = torch.zeros((ndx - split, N), dtype=dtype, device=device)
+        r0, d0, w0 = run(space.integrate_parts_soa(X, zq, zv), zu)
+        Jr_q, Jd_q = tangents(
+            lambda a: run(space.integrate_parts_soa(X, a, zv), zu)[:2], zq)
+        Jr_v, Jd_v = tangents(
+            lambda a: run(space.integrate_parts_soa(X, zq, a), zu)[:2], zv)
+        Jr_x, Jd_x = torch.cat([Jr_q, Jr_v], dim=0), torch.cat([Jd_q, Jd_v], dim=0)
+        X = space.integrate_parts_soa(X, zq, zv)
+    Jr_u, Jd_u = tangents(lambda a: run(X, a)[:2], zu)
+    Jr = torch.cat([Jr_x, Jr_u], dim=0)  # (ndx+nu, nr, N)
+    Jd = torch.cat([Jd_x, Jd_u], dim=0)  # (ndx+nu, ndx, N)
 
     # one sqrt(w)-scaled copy of Jr feeds both Gauss-Newton products
     ws = torch.sqrt(w0)
@@ -815,7 +877,10 @@ def stage_linearize(solver, sp, xs, us, lam_eq, lam_in, mu):
     if dev.type == "cpu":
         return _linearize_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu)
     if dev.type == "cuda":
-        if stage_route(solver.ocp) == "wide":
+        route = stage_route(solver.ocp)
+        if route == "centroidal":
+            return centroidal_stage_linearize(solver, sp, xs, us, lam_eq, lam_in, mu)
+        if route == "wide":
             return wide_stage_linearize(solver, sp, xs, us, lam_eq, lam_in, mu)
         out = _linearize_cuda(solver, sp, xs, us, lam_eq, lam_in, mu)
         stage_linearize.launches += 1
@@ -902,7 +967,10 @@ def stage_eval(solver, sp, xs, us, lam_eq, lam_in, mu):
     if dev.type == "cpu":
         return _eval_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu)
     if dev.type == "cuda":
-        if stage_route(solver.ocp) == "wide":
+        route = stage_route(solver.ocp)
+        if route == "centroidal":
+            return centroidal_stage_eval(solver, sp, xs, us, lam_eq, lam_in, mu)
+        if route == "wide":
             return wide_stage_eval(solver, sp, xs, us, lam_eq, lam_in, mu)
         out = _eval_cuda(solver, sp, xs, us, lam_eq, lam_in, mu)
         stage_eval.launches += 1
@@ -1131,8 +1199,11 @@ def _state_derivative_cuda(ocp, x, u, p, wide):
 def state_derivative(ocp, x, u, p):
     """K11: the continuous state derivative [v; a] of a KinodynamicsOCP on
     N lanes (csrc/acc.cu).  x (N,nx), u (N,nu), p stage params with leading
-    N (the kernel reads contact_active).  Returns (N, 2 nv)."""
+    N (the kernel reads contact_active).  Returns (N, 2 nv).  A centroidal
+    OCP goes to `centroidal_state_derivative` (its 9-dim ODE)."""
     dev = x.device
+    if _is_centroidal(ocp):
+        return centroidal_state_derivative(ocp, x, u, p)
     if dev.type == "cpu":
         return state_derivative_plain(ocp, x, u, p)
     if dev.type == "cuda":
@@ -1221,7 +1292,10 @@ def term_linearize(solver, x, tp, lam_term, mu):
     if dev.type == "cpu":
         return _linearize_term_plain(solver, x, tp, lam_term, mu)
     if dev.type == "cuda":
-        if stage_route(solver.ocp) == "wide":
+        route = stage_route(solver.ocp)
+        if route == "centroidal":
+            return centroidal_term_linearize(solver, x, tp, lam_term, mu)
+        if route == "wide":
             return wide_term_linearize(solver, x, tp, lam_term, mu)
         out = _term_cuda(solver, x, tp, lam_term, mu)
         term_linearize.launches += 1
@@ -1312,11 +1386,13 @@ def _integrate_cuda(solver, xs, us, dxs, dus):
 
 def candidate_integrate(solver, xs, us, dxs, dus):
     """K4's Lie integrate of the rollout's steps: `candidate_integrate_plain`'s
-    contract (csrc/linesearch.cu), for every model: it reads nq and nv
-    alone."""
+    contract (csrc/linesearch.cu), for every multibody model: it reads nq
+    and nv alone.  A centroidal OCP goes to `vector_candidate_integrate`."""
     dev = xs.device
     if dev.type == "cpu":
         return candidate_integrate_plain(solver, xs, us, dxs, dus)
+    if _is_centroidal(solver.ocp) and dev.type == "cuda":
+        return vector_candidate_integrate(solver, xs, us, dxs, dus)
     if dev.type == "cuda":
         out = _integrate_cuda(solver, xs, us, dxs, dus)
         candidate_integrate.launches += 1
@@ -1349,11 +1425,14 @@ def state_difference_plain(solver, x1, x2):
 
 def state_difference(solver, x1, x2):
     """difference(x1, x2) of the solver's state space on N lanes: x1, x2
-    (N,nx) -> (N,ndx) (csrc/linesearch.cu, every model).  The solver's
-    initial gap before its first iteration."""
+    (N,nx) -> (N,ndx) (csrc/linesearch.cu, every multibody model;
+    `vector_state_difference` for a centroidal OCP).  The solver's initial
+    gap before its first iteration."""
     dev = x1.device
     if dev.type == "cpu":
         return state_difference_plain(solver, x1, x2)
+    if _is_centroidal(solver.ocp) and dev.type == "cuda":
+        return vector_state_difference(solver, x1, x2)
     if dev.type == "cuda":
         out = _difference_cuda(solver, x1, x2)
         state_difference.launches += 1
@@ -1463,7 +1542,7 @@ def _bcl_consts(solver, dtype):
 
 
 def _select_cuda(solver, xs_c, us_c, costs, g, h, gap, tp, x0, lam_eq, lam_in, lam_term, mu,
-                 eta, omega, dual_res, alphas, wide):
+                 eta, omega, dual_res, alphas, wide, centroidal=False):
     ocp = solver.ocp
     dtype, device = xs_c.dtype, xs_c.device
     nb, na, T1, nx = xs_c.shape
@@ -1473,15 +1552,20 @@ def _select_cuda(solver, xs_c, us_c, costs, g, h, gap, tp, x0, lam_eq, lam_in, l
         raise NotImplementedError(
             f"line_search_select takes at most {LS_MAX_ALPHAS} step sizes and "
             f"{LS_MAX_TERM_EQ} terminal equalities, got {na} and {n_te}")
-    C, dims = _stage_consts(ocp, dtype, device, wide)
+    if centroidal:
+        C, dims = _centroidal_consts(ocp, dtype, device)
+        x_ref, dcm_ref = _centroidal_term_refs(tp), tp.com_ref
+    else:
+        C, dims = _stage_consts(ocp, dtype, device, wide)
+        x_ref, dcm_ref = tp.x_ref, tp.dcm_ref
     n = nb * na
     shapes = dict(xs_c=(nb, na, T1, nx), us_c=(nb, na, T, nu), costs=(n, T),
                   g=(n, T, n_eq), h=(n, T, n_in), gap=(n, T, ndx), x_ref=(nb, nx),
                   dcm_ref=(nb, 3), x0=(nb, nx), lam_eq=(nb, T, n_eq), lam_in=(nb, T, n_in),
                   lam_term=(nb, n_te), mu=(nb,), eta=(nb,), omega=(nb,), dual=(nb,),
                   alphas=(na,))
-    t = _check(dict(xs_c=xs_c, us_c=us_c, costs=costs, g=g, h=h, gap=gap, x_ref=tp.x_ref,
-                    dcm_ref=tp.dcm_ref, x0=x0, lam_eq=lam_eq, lam_in=lam_in,
+    t = _check(dict(xs_c=xs_c, us_c=us_c, costs=costs, g=g, h=h, gap=gap, x_ref=x_ref,
+                    dcm_ref=dcm_ref, x0=x0, lam_eq=lam_eq, lam_in=lam_in,
                     lam_term=lam_term, mu=mu, eta=eta, omega=omega, dual=dual_res,
                     alphas=alphas), shapes, dtype, device)
 
@@ -1494,7 +1578,8 @@ def _select_cuda(solver, xs_c, us_c, costs, g, h, gap, tp, x0, lam_eq, lam_in, l
                      eta=empty(nb), omega=empty(nb), dx0=empty(nb, ndx))
     ins = (ctypes.c_void_p * len(shapes))(*[t[k].data_ptr() for k in shapes])
     outs = (ctypes.c_void_p * len(out))(*[o.data_ptr() for o in out])
-    name = f"{'wide_' if wide else ''}line_search_select"
+    name = ("centroidal_line_search_select" if centroidal
+            else f"{'wide_' if wide else ''}line_search_select")
     fn = getattr(_library(), f"smpc_{name}_{_suffix(dtype)}")
     with torch.cuda.device(device):
         err = fn(ctypes.addressof(dims), C.data_ptr(), _bcl_consts(solver, dtype), ins, nb,
@@ -1508,14 +1593,18 @@ def line_search_select(solver, xs_c, us_c, costs, g, h, gap, tp, x0, lam_eq, lam
     """K4's line search and the BCL update: `line_search_select_plain`'s
     contract (csrc/linesearch.cu), new tensors throughout.  At most
     LS_MAX_ALPHAS step sizes on the card.  An OCP that `stage_route` sends
-    to the wide stage kernels goes to `wide_line_search_select`."""
+    to the wide stage kernels goes to `wide_line_search_select`, a
+    centroidal one to `centroidal_line_search_select`."""
     args = (solver, xs_c, us_c, costs, g, h, gap, tp, x0, lam_eq, lam_in, lam_term, mu,
             eta, omega, dual_res, alphas)
     dev = xs_c.device
     if dev.type == "cpu":
         return line_search_select_plain(*args)
     if dev.type == "cuda":
-        if stage_route(solver.ocp) == "wide":
+        route = stage_route(solver.ocp)
+        if route == "centroidal":
+            return centroidal_line_search_select(*args)
+        if route == "wide":
             return wide_line_search_select(*args)
         out = _select_cuda(*args, wide=False)
         line_search_select.launches += 1
@@ -1543,6 +1632,283 @@ def wide_line_search_select(solver, xs_c, us_c, costs, g, h, gap, tp, x0, lam_eq
 
 
 wide_line_search_select.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The centroidal formulation: its stage, terminal and ODE kernels, the
+# vector-space integrate and gap, and its line-search select
+# ---------------------------------------------------------------------------
+
+_cent_cache: dict = {}
+
+
+def _centroidal_consts(ocp, dtype, device):
+    """(packed constants, Dims) of csrc/centroidal.cu (`smpc_cent::Dims`):
+    the cost and terminal weights, gravity, the cone matrix and [mass,
+    timestep, pyramid epsilon], built once per (OCP, dtype, device)."""
+    key = (id(ocp), dtype, device)
+    hit = _cent_cache.get(key)
+    if hit is not None and hit[0] is ocp:
+        return hit[1], hit[2]
+    _require_centroidal(ocp)
+    c = ocp._const(torch.empty(0, dtype=torch.float64))
+    blocks = dict(o_w=_np64(c["w"]), o_wterm=_np64(c["w_term"]), o_g=_np64(c["g"]),
+                  o_cone=_np64(c["cone"]),
+                  o_scalars=np.array([ocp.mass, ocp.settings.timestep, FRICTION_EPS]))
+    dims = dict(nq=9, nv=0, nu=ocp.nu, nk=ocp.nk, fs=ocp.fs, n_cone=c["cone"].shape[0],
+                n_cost=blocks["o_w"].shape[0], n_eq=ocp.n_eq, n_in=ocp.n_in,
+                n_term_cost=blocks["o_wterm"].shape[0], n_term_eq=ocp.n_term_eq)
+    buf, dims_c = _pack_consts(dims, blocks, dtype, device, _CENT_DIMS_FIELDS)
+    _cent_cache[key] = (ocp, buf, dims_c)
+    return buf, dims_c
+
+
+def _centroidal_params(ocp, sp, nb, T, dtype, device):
+    """Pointers to the centroidal stage params (leading (B, T)), checked and
+    contiguous, in the kernels' order."""
+    nk = ocp.nk
+    shapes = dict(contact_active=(nb, T, nk), contact_pose=(nb, T, nk, 3),
+                  com_ref=(nb, T, 3), u_ref=(nb, T, ocp.nu), linmom_ref=(nb, T, 3),
+                  angmom_ref=(nb, T, 3))
+    t = _check({k: getattr(sp, k) for k in shapes}, shapes, dtype, device)
+    return [t[k].data_ptr() for k in shapes]
+
+
+def _centroidal_term_refs(tp):
+    """The terminal params as the select's x_ref [com_ref; linmom_ref;
+    angmom_ref] (B, 9)."""
+    return torch.cat([tp.com_ref, tp.linmom_ref, tp.angmom_ref], dim=-1)
+
+
+def _centroidal_linearize_cuda(solver, sp, xs, us, lam_eq, lam_in, mu):
+    ocp = solver.ocp
+    dtype, device = xs.dtype, xs.device
+    C, dims = _centroidal_consts(ocp, dtype, device)
+    nb, T = us.shape[:2]
+    nu = ocp.nu
+    shapes = dict(xs=(nb, T + 1, 9), us=(nb, T, nu), lam_in=(nb, T, ocp.n_in), mu=(nb,))
+    t = _check(dict(xs=xs, us=us, lam_in=lam_in, mu=mu), shapes, dtype, device)
+    params = _centroidal_params(ocp, sp, nb, T, dtype, device)
+    su = solver._su(xs)
+    out = dict(A=(nb, T, 9, 9), B=(nb, T, 9, nu), d=(nb, T, 9), qx=(nb, T, 9),
+               qu=(nb, T, nu), Qxx=(nb, T, 9, 9), Quu=(nb, T, nu, nu), Qux=(nb, T, nu, 9))
+    out = {k: torch.empty(v, dtype=dtype, device=device) for k, v in out.items()}
+    fn = getattr(_library(), f"smpc_centroidal_stage_linearize_{_suffix(dtype)}")
+    with torch.cuda.device(device):
+        err = fn(ctypes.addressof(dims), C.data_ptr(), t["xs"].data_ptr(), t["us"].data_ptr(),
+                 *params, t["lam_in"].data_ptr(), t["mu"].data_ptr(),
+                 None if su is None else su.data_ptr(), nb, T,
+                 *[v.data_ptr() for v in out.values()], _stream(device))
+    _raise_on(err, "centroidal_stage_linearize")
+    return out
+
+
+def centroidal_stage_linearize(solver, sp, xs, us, lam_eq, lam_in, mu):
+    """The centroidal stage's K1+K2 (csrc/centroidal.cu): `stage_linearize`'s
+    contract on a CentroidalOCP (nx = ndx = 9, no equality rows).  The twin
+    is the `torch.func` sweep over `CentroidalOCP.stage_eval_soa`."""
+    dev = xs.device
+    if dev.type == "cpu":
+        return _linearize_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu)
+    if dev.type == "cuda":
+        out = _centroidal_linearize_cuda(solver, sp, xs, us, lam_eq, lam_in, mu)
+        centroidal_stage_linearize.launches += 1
+        return out
+    raise RuntimeError(f"centroidal_stage_linearize: no kernel for device {dev}")
+
+
+centroidal_stage_linearize.launches = 0
+
+
+def _centroidal_eval_cuda(solver, sp, xs, us, lam_eq, lam_in, mu):
+    ocp = solver.ocp
+    dtype, device = xs.dtype, xs.device
+    C, dims = _centroidal_consts(ocp, dtype, device)
+    nb, na, T = us.shape[:3]
+    shapes = dict(xs=(nb, na, T + 1, 9), us=(nb, na, T, ocp.nu), lam_in=(nb, T, ocp.n_in),
+                  mu=(nb,))
+    t = _check(dict(xs=xs, us=us, lam_in=lam_in, mu=mu), shapes, dtype, device)
+    params = _centroidal_params(ocp, sp, nb, T, dtype, device)
+    n = nb * na
+    costs, h, gap = (torch.empty(s, dtype=dtype, device=device)
+                     for s in ((n, T), (n, T, ocp.n_in), (n, T, 9)))
+    fn = getattr(_library(), f"smpc_centroidal_stage_eval_{_suffix(dtype)}")
+    with torch.cuda.device(device):
+        err = fn(ctypes.addressof(dims), C.data_ptr(), t["xs"].data_ptr(), t["us"].data_ptr(),
+                 *params, t["lam_in"].data_ptr(), t["mu"].data_ptr(), nb, na, T,
+                 costs.data_ptr(), h.data_ptr(), gap.data_ptr(), _stream(device))
+    _raise_on(err, "centroidal_stage_eval")
+    return costs, torch.empty((n, T, 0), dtype=dtype, device=device), h, gap
+
+
+def centroidal_stage_eval(solver, sp, xs, us, lam_eq, lam_in, mu):
+    """The centroidal stage's K1 on the candidates (csrc/centroidal.cu):
+    `stage_eval`'s contract on a CentroidalOCP."""
+    dev = xs.device
+    if dev.type == "cpu":
+        return _eval_traj_plain(solver, sp, xs, us, lam_eq, lam_in, mu)
+    if dev.type == "cuda":
+        out = _centroidal_eval_cuda(solver, sp, xs, us, lam_eq, lam_in, mu)
+        centroidal_stage_eval.launches += 1
+        return out
+    raise RuntimeError(f"centroidal_stage_eval: no kernel for device {dev}")
+
+
+centroidal_stage_eval.launches = 0
+
+
+def _centroidal_term_cuda(solver, x, tp, lam_term, mu):
+    ocp = solver.ocp
+    dtype, device = x.dtype, x.device
+    C, dims = _centroidal_consts(ocp, dtype, device)
+    nb = x.shape[0]
+    shapes = dict(x=(nb, 9), linmom_ref=(nb, 3), angmom_ref=(nb, 3))
+    t = _check(dict(x=x, linmom_ref=tp.linmom_ref, angmom_ref=tp.angmom_ref), shapes,
+               dtype, device)
+    Vx = torch.empty((nb, 9), dtype=dtype, device=device)
+    Vxx = torch.empty((nb, 9, 9), dtype=dtype, device=device)
+    fn = getattr(_library(), f"smpc_centroidal_term_linearize_{_suffix(dtype)}")
+    with torch.cuda.device(device):
+        err = fn(ctypes.addressof(dims), C.data_ptr(), *[t[k].data_ptr() for k in shapes], nb,
+                 Vx.data_ptr(), Vxx.data_ptr(), _stream(device))
+    _raise_on(err, "centroidal_term_linearize")
+    return Vx, Vxx
+
+
+def centroidal_term_linearize(solver, x, tp, lam_term, mu):
+    """The centroidal terminal K5 (csrc/centroidal.cu): `term_linearize`'s
+    contract on a CentroidalOCP (the 6 momentum rows, no equality)."""
+    dev = x.device
+    if dev.type == "cpu":
+        return _linearize_term_plain(solver, x, tp, lam_term, mu)
+    if dev.type == "cuda":
+        out = _centroidal_term_cuda(solver, x, tp, lam_term, mu)
+        centroidal_term_linearize.launches += 1
+        return out
+    raise RuntimeError(f"centroidal_term_linearize: no kernel for device {dev}")
+
+
+centroidal_term_linearize.launches = 0
+
+
+def centroidal_state_derivative_plain(ocp, x, u, p):
+    """Plain twin of `centroidal_state_derivative`: `CentroidalOCP._ode_soa`
+    on N lanes."""
+    P = tree_map(lambda a: a.movedim(0, -1), p)
+    return ocp._ode_soa(x.T, u.T, P).T
+
+
+def _centroidal_ode_cuda(ocp, x, u, p):
+    dtype, device = x.dtype, x.device
+    C, dims = _centroidal_consts(ocp, dtype, device)
+    n = x.shape[0]
+    shapes = dict(x=(n, 9), u=(n, ocp.nu), active=(n, ocp.nk), pose=(n, ocp.nk, 3))
+    t = _check(dict(x=x, u=u, active=p.contact_active, pose=p.contact_pose), shapes, dtype,
+               device)
+    out = torch.empty((n, 9), dtype=dtype, device=device)
+    fn = getattr(_library(), f"smpc_centroidal_ode_{_suffix(dtype)}")
+    with torch.cuda.device(device):
+        err = fn(ctypes.addressof(dims), C.data_ptr(), *[t[k].data_ptr() for k in shapes], n,
+                 out.data_ptr(), _stream(device))
+    _raise_on(err, "centroidal_state_derivative")
+    return out
+
+
+def centroidal_state_derivative(ocp, x, u, p):
+    """The centroidal ODE [h/m; sum f + m g; tau] on N lanes
+    (csrc/centroidal.cu, `MPC.get_state_derivative`).  x (N,9), u (N,nu), p
+    stage params with leading N (the kernel reads contact_active and
+    contact_pose).  Returns (N, 9)."""
+    dev = x.device
+    if dev.type == "cpu":
+        return centroidal_state_derivative_plain(ocp, x, u, p)
+    if dev.type == "cuda":
+        out = _centroidal_ode_cuda(ocp, x, u, p)
+        centroidal_state_derivative.launches += 1
+        return out
+    raise RuntimeError(f"centroidal_state_derivative: no kernel for device {dev}")
+
+
+centroidal_state_derivative.launches = 0
+
+
+def _vector_integrate_cuda(solver, xs, us, dxs, dus):
+    dtype, device = xs.dtype, xs.device
+    nb, na, T1, nx = dxs.shape
+    T, nu = T1 - 1, solver.ocp.nu
+    shapes = dict(xs=(nb, T1, nx), us=(nb, T, nu), dxs=(nb, na, T1, nx), dus=(nb, na, T, nu))
+    t = _check(dict(xs=xs, us=us, dxs=dxs, dus=dus), shapes, dtype, device)
+    su = solver._su(xs)
+    xs_c = torch.empty((nb, na, T1, nx), dtype=dtype, device=device)
+    us_c = torch.empty((nb, na, T, nu), dtype=dtype, device=device)
+    fn = getattr(_library(), f"smpc_vector_candidate_integrate_{_suffix(dtype)}")
+    with torch.cuda.device(device):
+        err = fn(nx, nu, *[t[k].data_ptr() for k in shapes],
+                 None if su is None else su.data_ptr(), nb, na, T, xs_c.data_ptr(),
+                 us_c.data_ptr(), _stream(device))
+    _raise_on(err, "vector_candidate_integrate")
+    return xs_c, us_c
+
+
+def vector_candidate_integrate(solver, xs, us, dxs, dus):
+    """K4's integrate of the rollout's steps on a vector space
+    (csrc/centroidal.cu): xs + dxs, us + su dus;
+    `candidate_integrate_plain`'s contract."""
+    dev = xs.device
+    if dev.type == "cpu":
+        return candidate_integrate_plain(solver, xs, us, dxs, dus)
+    if dev.type == "cuda":
+        out = _vector_integrate_cuda(solver, xs, us, dxs, dus)
+        vector_candidate_integrate.launches += 1
+        return out
+    raise RuntimeError(f"vector_candidate_integrate: no kernel for device {dev}")
+
+
+vector_candidate_integrate.launches = 0
+
+
+def vector_state_difference(solver, x1, x2):
+    """x2 - x1 on a vector space on N lanes (csrc/centroidal.cu): x1, x2
+    (N,nx) -> (N,nx); `state_difference`'s contract."""
+    dev = x1.device
+    if dev.type == "cpu":
+        return state_difference_plain(solver, x1, x2)
+    if dev.type == "cuda":
+        n, nx = x1.shape
+        t = _check(dict(x1=x1, x2=x2), dict(x1=(n, nx), x2=(n, nx)), x1.dtype, dev)
+        out = torch.empty((n, nx), dtype=x1.dtype, device=dev)
+        fn = getattr(_library(), f"smpc_vector_state_difference_{_suffix(x1.dtype)}")
+        with torch.cuda.device(dev):
+            err = fn(nx, t["x1"].data_ptr(), t["x2"].data_ptr(), n, out.data_ptr(),
+                     _stream(dev))
+        _raise_on(err, "vector_state_difference")
+        vector_state_difference.launches += 1
+        return out
+    raise RuntimeError(f"vector_state_difference: no kernel for device {dev}")
+
+
+vector_state_difference.launches = 0
+
+
+def centroidal_line_search_select(solver, xs_c, us_c, costs, g, h, gap, tp, x0, lam_eq,
+                                  lam_in, lam_term, mu, eta, omega, dual_res,
+                                  alphas) -> LineSearch:
+    """K4's line search and the BCL update on a CentroidalOCP
+    (csrc/linesearch_centroidal.cu): `line_search_select`'s contract, with
+    the terminal AL cost of the 6 momentum rows."""
+    args = (solver, xs_c, us_c, costs, g, h, gap, tp, x0, lam_eq, lam_in, lam_term, mu,
+            eta, omega, dual_res, alphas)
+    dev = xs_c.device
+    if dev.type == "cpu":
+        return line_search_select_plain(*args)
+    if dev.type == "cuda":
+        out = _select_cuda(*args, wide=False, centroidal=True)
+        centroidal_line_search_select.launches += 1
+        return out
+    raise RuntimeError(f"centroidal_line_search_select: no kernel for device {dev}")
+
+
+centroidal_line_search_select.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1802,6 +2168,12 @@ ID_OUT = ("H", "g", "A", "l", "u", "M", "h", "JcT")
 _id_cache: dict = {}
 
 
+def _is_centroidal_id(idsolver) -> bool:
+    from .id.centroidal_id import CentroidalID
+
+    return isinstance(idsolver, CentroidalID)
+
+
 def _id_rows(idsolver) -> int:
     """Constraint rows of the ID's QP: the 6 base dynamics rows, the contact
     motion equalities (with `contact_motion_equality`), the inactive-force
@@ -1821,21 +2193,26 @@ def _id_params(idsolver, dtype, device):
     s, m = idsolver.settings, idsolver.model
     kd = [2.0 * np.sqrt(k) for k in (s.kp_base, s.kp_posture)]
     kd.append(2.0 * np.sqrt(s.kp_contact) if s.kp_contact > 0 else 0.0)
-    flat = np.concatenate([
+    blocks = [
         [s.kp_base, s.kp_posture, s.kp_contact, *kd, s.w_base, s.w_posture,
          s.w_contact_motion, s.w_contact_force, idsolver.min_f, idsolver.max_f,
          idsolver.dt, idsolver.dt ** 2],
         np.asarray(idsolver._cone_mat).reshape(-1),
-        m.velocity_limit[6:], m.lower_limit[7:], m.upper_limit[7:], m.effort_limit[6:]])
+        m.velocity_limit[6:], m.lower_limit[7:], m.upper_limit[7:], m.effort_limit[6:]]
+    if _is_centroidal_id(idsolver):  # csrc/id_centroidal.cu `CidParams`
+        blocks.append([s.kp_com, 2.0 * np.sqrt(s.kp_com), s.w_com, s.kp_feet_tracking,
+                       2.0 * np.sqrt(s.kp_feet_tracking), s.w_feet_tracking])
+    flat = np.concatenate(blocks)
     buf = torch.as_tensor(flat, dtype=dtype, device=device)
     _id_cache[key] = (idsolver, buf)
     return buf
 
 
-def _id_cuda(idsolver, q, v, targets, wide):
+def _id_cuda(idsolver, q, v, targets, wide, centroidal=False):
     from .id.kinodynamics_id import KinodynamicsID
 
-    if type(idsolver)._extra_tasks is not KinodynamicsID._extra_tasks:
+    if not centroidal and (type(idsolver)._extra_tasks is not KinodynamicsID._extra_tasks
+                           or np.any(idsolver._base_mask != 1.0)):
         raise NotImplementedError("id_assemble takes the KinodynamicsID task set")
     m = idsolver.model
     dtype, device = q.dtype, q.device
@@ -1846,11 +2223,16 @@ def _id_cuda(idsolver, q, v, targets, wide):
     rows = _id_rows(idsolver)
     shapes = dict(q=(nb, m.nq), v=(nb, nv), q_t=(nb, m.nq), v_t=(nb, nv), a_t=(nb, nv),
                   contacts=(nb, nk), f_t=(nb, nk, fd))
-    t = _check(dict(q=q, v=v, **targets), shapes, dtype, device)
+    if centroidal:
+        shapes.update(com_t=(nb, 3), com_v_t=(nb, 3), feet_p_t=(nb, nk, 3),
+                      feet_R_t=(nb, nk, 3, 3), feet_v_t=(nb, nk, 6))
+    t = _check(dict(q=q, v=v, **{k: targets[k] for k in shapes if k not in ("q", "v")}),
+               shapes, dtype, device)
     out = {k: torch.empty(s, dtype=dtype, device=device) for k, s in (
         ("H", (nb, nz, nz)), ("g", (nb, nz)), ("A", (nb, rows, nz)), ("l", (nb, rows)),
         ("u", (nb, rows)), ("M", (nb, nv, nv)), ("h", (nb, nv)), ("JcT", (nb, nv, fd * nk)))}
-    name = f"{'wide_' if wide else ''}id_assemble"
+    name = ("centroidal_id_assemble" if centroidal
+            else f"{'wide_' if wide else ''}id_assemble")
     fn = getattr(_library(), f"smpc_{name}_{_suffix(dtype)}")
     with torch.cuda.device(device):
         err = fn(ctypes.addressof(dims), C.data_ptr(), P.data_ptr(),
@@ -1866,11 +2248,15 @@ def id_assemble(idsolver, q, v, targets):
     with M, h and Jc' for the torques.  q (B,nq), v (B,nv), targets
     q_t (B,nq), v_t, a_t (B,nv), contacts (B,nk), f_t (B,nk,fdim).  A
     model that `body_route` sends to the wide unit goes to
-    `wide_id_assemble` on the card."""
+    `wide_id_assemble` on the card, a `CentroidalID` (its CoM and swing
+    tasks, targets com_t, com_v_t, feet_p_t, feet_R_t, feet_v_t) to
+    `centroidal_id_assemble`."""
     dev = q.device
     if dev.type == "cpu":
         return idsolver._assemble_core(q, v, targets)
     if dev.type == "cuda":
+        if _is_centroidal_id(idsolver):
+            return centroidal_id_assemble(idsolver, q, v, targets)
         if body_route(idsolver.model, idsolver.nk, idsolver.fdim, "id_assemble") == "wide":
             return wide_id_assemble(idsolver, q, v, targets)
         out = _id_cuda(idsolver, q, v, targets, wide=False)
@@ -1898,6 +2284,25 @@ def wide_id_assemble(idsolver, q, v, targets):
 
 
 wide_id_assemble.launches = 0
+
+
+def centroidal_id_assemble(idsolver, q, v, targets):
+    """K8's assembly for a `CentroidalID` (csrc/id_centroidal.cu, id.cu over
+    stage_wide.cuh with the CoM and swing-foot rows and the orientation-only
+    base task): `id_assemble`'s contract, point feet or 6D contacts, up to
+    WIDE_MAX_JOINTS joints."""
+    dev = q.device
+    if dev.type == "cpu":
+        return idsolver._assemble_core(q, v, targets)
+    if dev.type == "cuda":
+        body_route(idsolver.model, idsolver.nk, idsolver.fdim, "centroidal_id_assemble")
+        out = _id_cuda(idsolver, q, v, targets, wide=True, centroidal=True)
+        centroidal_id_assemble.launches += 1
+        return out
+    raise RuntimeError(f"centroidal_id_assemble: no kernel for device {dev}")
+
+
+centroidal_id_assemble.launches = 0
 
 
 def _sim_cuda(sim, q, v, tau, wide):
@@ -1966,7 +2371,10 @@ KERNELS = (stage_linearize, stage_eval, riccati_backward, parallel_riccati_backw
            wide_stage_eval, wide_term_linearize, state_derivative, wide_state_derivative,
            wide_id_assemble, wide_sim_step, candidate_integrate, state_difference,
            line_search_select, wide_line_search_select, wide_tick_refs,
-           wide_fd_stage_linearize, wide_fd_stage_eval, wide_fd_dynamics)
+           wide_fd_stage_linearize, wide_fd_stage_eval, wide_fd_dynamics,
+           centroidal_stage_linearize, centroidal_stage_eval, centroidal_term_linearize,
+           centroidal_state_derivative, vector_candidate_integrate, vector_state_difference,
+           centroidal_line_search_select, centroidal_id_assemble)
 
 
 def reset_launches():

@@ -35,6 +35,13 @@ class VectorSpace:
     def neutral(self, dtype=torch.float64, device="cpu"):
         return torch.zeros(self.nx, dtype=dtype, device=device)
 
+    # -- trailing-batch (SoA) twins: X (nx, N), tangents (ndx, N) ----------
+    def integrate_soa(self, X, dX):
+        return X + dX
+
+    def difference_soa(self, X1, X2):
+        return X2 - X1
+
 
 class MultibodyPhaseSpace:
     """x = [q (nq); v (nv)], tangent [dq (nv); dv (nv)] (Lie on q)."""

@@ -9,8 +9,11 @@ as the JAX package's `BatchedSolver` (a vmap of `run`) does.
 
 One iteration:
   * K1/K2 `kernels.stage_linearize` (`fd_stage_linearize` for full
-    dynamics, with K7 inside): the stage bundle on N = B*T lanes, its
-    forward tangents along the 18 dq, 18 dv and nu du basis directions and
+    dynamics, with K7 inside; for the centroidal formulation, whose 9-dim
+    state lives on a vector space, `kernels.stage_route` hands this and the
+    terminal and select wrappers on to csrc/centroidal.cu's and
+    csrc/linesearch_centroidal.cu's kernels): the stage bundle on N = B*T
+    lanes, its forward tangents along the 18 dq, 18 dv and nu du basis directions and
     the Gauss-Newton products;
   * K5 `kernels.term_linearize`: the terminal Jacobian;
   * K3 `kernels.riccati_backward`: the serial Riccati pass, or with
@@ -101,11 +104,12 @@ class ProxDDPSolver:
         self.ocp = ocp
         self.settings = settings
         self.space = ocp.space
-        if getattr(self.space, "tangent_split", None) is None or \
-                not hasattr(ocp, "stage_eval_soa"):
+        centroidal = getattr(ocp, "centroidal", False)
+        if not hasattr(ocp, "stage_eval_soa") or not (
+                centroidal or getattr(self.space, "tangent_split", None) is not None):
             raise NotImplementedError(
                 "the port's solver runs the SoA path only (stage_eval_soa and "
-                "a q/v tangent split)")
+                "a q/v tangent split, or the centroidal formulation)")
         u_sc = settings.u_scale
         if isinstance(u_sc, str):
             if u_sc != "auto":
@@ -116,8 +120,9 @@ class ProxDDPSolver:
             raise ValueError(
                 f"u_scale shape {self._u_scale.shape} != (nu,) = ({ocp.nu},)")
         self._consts = {}
-        # the stage kernels of the formulation (K1+K2 and K1)
-        if ocp.full_dynamics:
+        # the stage kernels of the formulation (K1+K2 and K1); the kinodynamics
+        # wrappers hand a centroidal OCP on to its own (kernels.stage_route)
+        if getattr(ocp, "full_dynamics", False):
             self._linearize, self._eval = kernels.fd_stage_linearize, kernels.fd_stage_eval
         else:
             self._linearize, self._eval = kernels.stage_linearize, kernels.stage_eval

@@ -16,6 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread a test process: the suite runs six at once, and idle
+# torch threads spinning beside the others' work slow every worker down
+torch.set_num_threads(1)
+
 T = 12
 TICKS = 4
 FEET = ["FL_foot", "FR_foot", "RL_foot", "RR_foot"]

@@ -28,7 +28,7 @@ limit on six workers.  The port's fused tick is held to its own host MPC
 on both models in the quick suite (tests/test_torch_fused_wide.py); the
 host MPC on Talos is held to JAX's there (tests/test_torch_talos_solver.py).
 The latency tick (`parallel=True`, advanced with `step_donated`) and Go2
-full dynamics are compared under test_torch_latency_jax.py's tolerance,
+full dynamics are compared under test_torch_fused_jax.py's latency tolerance,
 max(1e-9, ten times the reference's own spread under a 1e-15 warm-start
 perturbation).
 """
@@ -40,6 +40,10 @@ import pytest
 import torch
 
 from test_torch_fused_mpc import measurements, quad_gait_plan
+
+# one intra-op thread a test process: the suite runs six at once, and idle
+# torch threads spinning beside the others' work slow every worker down
+torch.set_num_threads(1)
 
 T = 6
 TICKS = 4

@@ -35,6 +35,10 @@ import torch
 
 from test_torch_fused_mpc import measurements, quad_gait_plan
 
+# one intra-op thread a test process: the suite runs six at once, and idle
+# torch threads spinning beside the others' work slow every worker down
+torch.set_num_threads(1)
+
 T = 6
 FD_T = 4
 TICKS = 3  # the gaits' first swing enters the horizon on the third tick

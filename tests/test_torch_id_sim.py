@@ -28,6 +28,10 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread a test process: the suite runs six at once, and idle
+# torch threads spinning beside the others' work slow every worker down
+torch.set_num_threads(1)
+
 TOL = 1e-9
 ID_SETTINGS = dict(kp_base=10.0, kp_posture=10.0, kp_contact=50.0, w_base=1.0,
                    w_posture=0.1, w_contact_motion=100.0, w_contact_force=0.05, qp_iters=60)

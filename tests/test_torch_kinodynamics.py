@@ -19,6 +19,10 @@ from simple_mpc_tpu_torch.convert import problem_from_numpy
 from simple_mpc_tpu_torch.models.handler import RobotDataHandler as TData
 from simple_mpc_tpu_torch.ocp.base import index_params, roll_params
 
+# one intra-op thread a test process: the suite runs six at once, and idle
+# torch threads spinning beside the others' work slow every worker down
+torch.set_num_threads(1)
+
 TOL = 1e-11
 T = 8
 

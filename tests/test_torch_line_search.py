@@ -39,6 +39,10 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread a test process: the suite runs six at once, and idle
+# torch threads spinning beside the others' work slow every worker down
+torch.set_num_threads(1)
+
 NB = 4
 ALPHAS = (0.0, 1.0, 0.5, 0.25, 0.1)
 TOL = 1e-12

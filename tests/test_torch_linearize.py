@@ -18,6 +18,10 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread a test process: the suite runs six at once, and idle
+# torch threads spinning beside the others' work slow every worker down
+torch.set_num_threads(1)
+
 T = 5
 NB = 2
 NA = 3

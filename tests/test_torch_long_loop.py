@@ -20,6 +20,10 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread a test process: the suite runs six at once, and idle
+# torch threads spinning beside the others' work slow every worker down
+torch.set_num_threads(1)
+
 TICKS = 160  # tests/test_walking.py:181
 T = 50
 FLOOR = 1e-8  # metres: what the two walks may differ by whatever the spread

@@ -11,9 +11,15 @@ inverse-dynamics QP, the rigid-contact simulator) on both sides, each fed
 back its own simulated state, from the same MPCs (a fixture of its own,
 so a fault in the closed loop fails only its own tests).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
+
+# one intra-op thread a test process: the suite runs six at once, and idle
+# torch threads spinning beside the others' work slow every worker down
+torch.set_num_threads(1)
 
 T = 20
 TICKS = 5
@@ -51,12 +57,20 @@ def engines():
     from simple_mpc_tpu import configs as jconfigs
     from simple_mpc_tpu.mpc import MPC as JMPC
     from simple_mpc_tpu.mpc import MPCSettings as JMPCSettings
+    from simple_mpc_tpu.mpc import mpc as jmpc_module
+    from simple_mpc_tpu.solver.proxddp import ProxDDPSolver as JSolver
     from simple_mpc_tpu_torch import configs as tconfigs
     from simple_mpc_tpu_torch.mpc import MPC, MPCSettings
 
     jocp, jmh, _ = jconfigs.make_go2_kinodynamics(T)
     tocp, tmh, _ = tconfigs.make_go2_kinodynamics(T, device="cpu")
-    jm = JMPC(JMPCSettings(support_force=jmh.mass * 9.81, **SETTINGS), jocp)
+    # the JAX MPC's two solvers with their scans not unrolled
+    # (`scan_unroll=1`, a compile setting that leaves the arithmetic as it
+    # is and shortens both compiles)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jmpc_module, "ProxDDPSolver", lambda ocp, s: JSolver(
+            ocp, dataclasses.replace(s, scan_unroll=1)))
+        jm = JMPC(JMPCSettings(support_force=jmh.mass * 9.81, **SETTINGS), jocp)
     tm = MPC(MPCSettings(support_force=tmh.mass * 9.81, **SETTINGS), tocp)
     out = [dict(j=(jm.xs, jm.us, jm.Ks), t=(tm.xs, tm.us, tm.Ks),
                 jq=_queues(jm), tq=_queues(tm))]
@@ -76,6 +90,23 @@ def engines():
                 t=np.stack([tm.foot_trajectories.get_reference(n) for n in tmh.feet_names]))
     sd = (np.asarray(jm.get_state_derivative(3)), tm.get_state_derivative(3))
     return (out, foot, sd, queues), (jm, jmh, tm, tmh)
+
+
+def jax_id_warm(JID, mh, settings, rows):
+    """A JAX KinodynamicsID whose constructor's dry run starts from a zero
+    QP warm start in place of None (the same iterates: `solve_qp` starts
+    from zeros either way), so that XLA compiles its `_solve_core` once, for
+    the warm-started structure every later solve takes.  `rows`: the QP's
+    constraint rows (`kernels._id_rows` of the port's ID)."""
+    import jax.numpy as jnp
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JID, "solve", lambda self, t, q, v: None)
+        jid = JID(mh, 1e-3, settings)
+    x = np.asarray(mh.reference_state)
+    jid._qp_warm = (jnp.zeros(jid.nz), jnp.zeros(rows))
+    jid.solve(0.0, x[: jid.nq], x[jid.nq:])
+    return jid
 
 
 @pytest.fixture(scope="module")
@@ -105,9 +136,11 @@ def closed_loop(engines):
     from simple_mpc_tpu_torch.examples.loop import run_closed_loop as tloop
     from simple_mpc_tpu_torch.id.kinodynamics_id import IDSettings, KinodynamicsID
 
+    from simple_mpc_tpu_torch.kernels import _id_rows
+
     jm, jmh, tm, tmh = engines[1]
-    jid = JID(jmh, 1e-3, JIDSettings(**ID_SETTINGS))
     tid = KinodynamicsID(tmh, 1e-3, IDSettings(**ID_SETTINGS), device="cpu")
+    jid = jax_id_warm(JID, jmh, JIDSettings(**ID_SETTINGS), _id_rows(tid))
     # the JAX run is repeated from a copy of its MPC that shares the
     # (jitted, stateless) solvers, so nothing compiles twice; the ID's and
     # the simulator's state is put back by hand

@@ -30,6 +30,10 @@ import torch
 
 from simple_mpc_tpu_torch.testing import random_lq as _random_lq
 
+# one intra-op thread a test process: the suite runs six at once, and idle
+# torch threads spinning beside the others' work slow every worker down
+torch.set_num_threads(1)
+
 TOL = 1e-9
 REG = 1e-9
 T_SOLVER = 12
@@ -161,7 +165,9 @@ def solver_runs():
     lams = (0.01 * rng.normal(size=(NB, T, jocp.n_eq)), np.zeros((NB, T, jocp.n_in)),
             np.zeros((NB, 0)))
 
-    jbs = JBatched(JSolver(jocp, JSettings(max_iters=ITERS, parallel=True, **SETTINGS)))
+    # scans not unrolled: a compile setting, the arithmetic as it is
+    jbs = JBatched(JSolver(jocp, JSettings(max_iters=ITERS, parallel=True, scan_unroll=1,
+                                           **SETTINGS)))
     jres = jax.tree_util.tree_map(np.asarray, jbs.run(
         jtile(prob, NB), jnp.asarray(xs), jnp.asarray(us), tuple(map(jnp.asarray, lams))))
 

@@ -13,6 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread a test process: the suite runs six at once, and idle
+# torch threads spinning beside the others' work slow every worker down
+torch.set_num_threads(1)
+
 
 def _rel(a, b):
     """max|a - b| relative to the largest entry of b."""
@@ -66,7 +70,7 @@ def go2_f32():
         jax64.append([np.asarray(a) for a in fn(*jax.tree_util.tree_map(
             lambda a: jnp.asarray(a, jnp.float64), args))])
     return dict(nb=nb, lin=lin, Vx=Vx, Vxx=Vxx, reg=reg, twin32=twin32, twin64=twin64,
-                jax32=jax32, jax64=jax64)
+                jax32=jax32, jax64=jax64, fn=fn)
 
 
 def test_f32_error_on_go2_data_is_the_functions(go2_f32):
@@ -234,7 +238,6 @@ def test_f32_loss_is_the_combines_lu_roundoff(go2_f32, monkeypatch):
     import scipy.linalg as sl
 
     import simple_mpc_tpu_torch.solver.parallel_riccati as pr
-    from simple_mpc_tpu.solver.parallel_riccati import parallel_backward
 
     c = go2_f32
     elim, scan, gains = _jax_stages(c["reg"])
@@ -273,7 +276,7 @@ def test_f32_loss_is_the_combines_lu_roundoff(go2_f32, monkeypatch):
         f64=lambda M, R: plain_solve(M.double(), R.double()).float(),
         scipy=scipy_lu,
         jax=lambda M, R: torch.as_tensor(np.asarray(jsolve(M.numpy(), R.numpy()))))
-    fn = jax.jit(lambda l, vx, vxx: parallel_backward(l, vx, vxx, c["reg"])[:2])
+    fn = c["fn"]  # the fixture's jit of `parallel_backward`: its f32 and f64 compiles
     rng = np.random.default_rng(0)
     for b in range(c["nb"]):
         e = {f"{E}{S}j": err(b, run(b, E, S)) for E, S in ("jj", "pj", "jp")}

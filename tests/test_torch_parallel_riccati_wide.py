@@ -9,7 +9,7 @@
   dynamics (nx=36, nu=12; all 68 inequality rows, the quasistatic torques
   perturbed); AL penalty mu = sqrt(eps) of f32, the solver's f32 floor.
   Tolerance (the rule of
-  tests/test_torch_latency_jax.py): max(1e-9, ten times JAX's own spread
+  tests/test_torch_fused_jax.py's latency tick): max(1e-9, ten times JAX's own spread
   under a 1e-15 relative move of its inputs), relative to the largest
   entry: without Jacobi scaling Quu + reg I spans the AL weights 1/mu and
   the small control weights.
@@ -35,6 +35,10 @@ import functools
 import numpy as np
 import pytest
 import torch
+
+# one intra-op thread a test process: the suite runs six at once, and idle
+# torch threads spinning beside the others' work slow every worker down
+torch.set_num_threads(1)
 
 T = 8
 NB = 2

@@ -23,6 +23,10 @@ import torch
 
 from simple_mpc_tpu_torch.testing import random_lq
 
+# one intra-op thread a test process: the suite runs six at once, and idle
+# torch threads spinning beside the others' work slow every worker down
+torch.set_num_threads(1)
+
 T = 8
 NB = 2
 MU = 1e-2
@@ -63,7 +67,10 @@ def case():
 
     jocp, jmh, x0 = jconfigs.make_go2_kinodynamics(T)
     tocp, _, _ = tconfigs.make_go2_kinodynamics(T, device="cpu")
-    js = JSolver(jocp, JSettings())
+    # scans not unrolled (`scan_unroll=1`): a compile setting that leaves the
+    # arithmetic as it is and shortens the backward pass's and the
+    # rollout's compiles
+    js = JSolver(jocp, JSettings(scan_unroll=1))
     ts = ProxDDPSolver(tocp, SolverSettings())
     prob = jocp.problem
     rng = np.random.default_rng(11)

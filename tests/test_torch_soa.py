@@ -22,6 +22,10 @@ from simple_mpc_tpu_torch.ops import soa as tsoa
 from simple_mpc_tpu_torch.ops import soa_dyn as tsoa_dyn
 from simple_mpc_tpu_torch.ops import world as tworld
 
+# one intra-op thread a test process: the suite runs six at once, and idle
+# torch threads spinning beside the others' work slow every worker down
+torch.set_num_threads(1)
+
 TOL = 1e-12
 N = 7
 

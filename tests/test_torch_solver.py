@@ -3,8 +3,10 @@
 Go2 kinodynamics T=8, B=2 scenarios with distinct perturbed warm starts
 (iterate and multipliers), f64 CPU.  The port's `BatchedSolver.run` is held
 to the JAX package's `BatchedSolver.run` (a vmap of the single-problem
-solver) after 1 and 5 iterations, within 1e-9 relative to max(1, largest
-entry): xs, us, ks, Ks, the multipliers, mu, prim, dual and merit.
+solver) after 1 iteration here, and after 5 in
+tests/test_torch_solver_iters.py (one JAX compile each, so that the two
+files run on two workers), within 1e-9 relative to max(1, largest entry):
+xs, us, ks, Ks, the multipliers, mu, prim, dual and merit.
 
 The step size JAX accepted in the last iteration is identified by matching
 the JAX iterate against the port's candidates of that iteration (one per
@@ -16,10 +18,16 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread a test process: the suite runs six at once, and idle
+# torch threads spinning beside the others' work slow every worker down
+torch.set_num_threads(1)
+
 T = 8
 NB = 2
 TOL = 1e-9
-ITERS = (1, 5)
+ITERS = (1,)  # 5: tests/test_torch_solver_iters.py
+FIELDS = ("xs", "us", "ks", "Ks", "lam_eq", "lam_in", "lam_term", "mu", "prim_res",
+          "dual_res", "merit")
 # a start far enough out that iteration 5 still takes real steps (|k| ~ 3e-3):
 # at convergence the step sizes tie in merit at roundoff level
 SETTINGS = dict(mu_init=1e-2, tol=1e-7)
@@ -34,8 +42,9 @@ def _err(a, b):
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1.0))
 
 
-@pytest.fixture(scope="module")
-def runs():
+def solver_runs(iters):
+    """(JAX results, port results, the step sizes JAX accepted) after each
+    n in `iters` iterations from the module's warm start."""
     import jax
     import jax.numpy as jnp
 
@@ -64,8 +73,11 @@ def runs():
     lam_in = np.zeros((NB, T, jocp.n_in))
     lam_term = np.zeros((NB, 0))
 
-    jbs = {n: JBatched(JSolver(jocp, JSettings(max_iters=n, **SETTINGS)))
-           for n in ITERS}
+    # `scan_unroll=1`: the JAX solver's scans over the horizon not unrolled,
+    # a compile setting that leaves the arithmetic as it is and shortens
+    # each of the two compiles
+    jbs = {n: JBatched(JSolver(jocp, JSettings(max_iters=n, scan_unroll=1, **SETTINGS)))
+           for n in iters}
     jprobs = jtile(prob, NB)
     jl = (jnp.asarray(lam_eq), jnp.asarray(lam_in), jnp.asarray(lam_term))
     jres = {n: jax.tree_util.tree_map(np.asarray, b.run(jprobs, jnp.asarray(xs),
@@ -77,7 +89,7 @@ def runs():
     tl = lams_from_numpy(lam_eq, lam_in, lam_term, "cpu")
     txs, tus = torch.as_tensor(xs), torch.as_tensor(us)
     tres, alpha_j = {}, {}
-    for n in ITERS:
+    for n in iters:
         solver = ProxDDPSolver(tocp, SolverSettings(max_iters=n, **SETTINGS))
         tres[n] = results_to_numpy(BatchedSolver(solver).run(tprobs, txs, tus, tl))
         # the port's state entering iteration n, and its candidates there
@@ -94,6 +106,11 @@ def runs():
     return jres, tres, alpha_j
 
 
+@pytest.fixture(scope="module")
+def runs():
+    return solver_runs(ITERS)
+
+
 def _candidates(solver, probs, xs, us, lams, mu):
     """The port's line-search candidates of one iteration from (xs, us)."""
     from simple_mpc_tpu_torch import kernels
@@ -108,8 +125,7 @@ def _candidates(solver, probs, xs, us, lams, mu):
 
 
 @pytest.mark.parametrize("n", ITERS)
-@pytest.mark.parametrize("field", ["xs", "us", "ks", "Ks", "lam_eq", "lam_in",
-                                   "lam_term", "mu", "prim_res", "dual_res", "merit"])
+@pytest.mark.parametrize("field", FIELDS)
 def test_batched_solver_matches_jax(runs, n, field):
     jres, tres, _ = runs
     assert _err(tres[n][field], getattr(jres[n], field)) < TOL

@@ -32,6 +32,10 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread a test process: the suite runs six at once, and idle
+# torch threads spinning beside the others' work slow every worker down
+torch.set_num_threads(1)
+
 T = 4
 TOL_STAGE = 1e-12
 TOL_LIN = 1e-9

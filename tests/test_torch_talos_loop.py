@@ -15,9 +15,11 @@ solver wrapper with `scan_unroll=1`, as in tests/test_torch_talos_solver.py,
 so XLA compiles the Talos iteration once.
 
 Tolerance (the rule of tests/test_torch_mpc.py::test_closed_loop_matches_jax):
-q and v after each tick within max(1e-8, ten times JAX's own response to a
-1e-15 relative move of the start state), relative to max(1, largest
-entry); the spread run is made only when the error reaches 1e-8.
+q and v after each tick, the simulator's world contact forces at each
+tick's last step, and the two MPCs' plans (xs, us, Ks) after the run
+within max(1e-8, ten times JAX's own response to a 1e-15 relative move of
+the start state), relative to max(1, largest entry); the spread run is
+made only when an error reaches 1e-8.
 """
 import copy
 
@@ -25,9 +27,14 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread a test process: the suite runs six at once, and idle
+# torch threads spinning beside the others' work slow every worker down
+torch.set_num_threads(1)
+
 T = 6
 TICKS = 2
 FLOOR = 1e-8
+PLAN = ("xs", "us", "Ks")
 MPC_OVERRIDES = dict(T_fly=4, T_contact=2, init_max_iters=1)
 
 
@@ -82,6 +89,8 @@ def closed_loop():
     from simple_mpc_tpu.solver.proxddp import ProxDDPSolver as JSolver
     from simple_mpc_tpu.solver.proxddp import SolverSettings as JSettings
     from simple_mpc_tpu_torch.examples import talos_kinodynamics as ex
+    from simple_mpc_tpu_torch.kernels import _id_rows
+    from test_torch_mpc import jax_id_warm
 
     settings = {**ex.MPC_SETTINGS, **MPC_OVERRIDES}
     jmh = jhandler()
@@ -94,7 +103,8 @@ def closed_loop():
         mp.setattr(jmpc_module, "ProxDDPSolver", lambda ocp, settings: shared)
         jm = jmpc_module.MPC(jmpc_module.MPCSettings(support_force=jmh.mass * 9.81,
                                                      **settings), jocp)
-    jid = JID(jmh, 1e-3, JIDSettings(**ex.ID_SETTINGS))
+    tm, tmh, tid = ex.setup(T, device="cpu", dtype=torch.float64, **MPC_OVERRIDES)
+    jid = jax_id_warm(JID, jmh, JIDSettings(**ex.ID_SETTINGS), _id_rows(tid))
     plant = JSim(jmh.model, jmh.feet_frame_ids,
                  JSimSettings(dt=1e-3, ground_height=jfoot_height(jmh)))
     jm2, jmh2 = copy.deepcopy(jm, {id(shared): shared}), copy.copy(jmh)
@@ -107,11 +117,12 @@ def closed_loop():
     def jax_run(mpc, mh):
         r = jloop(mpc, mh, id_solver=jid, n_steps=TICKS, log_every=0, plant=plant,
                   walk_velocity=ex.WALK, gait=gait)
-        return np.stack(r["q"]), np.stack(r["v"])
+        return (np.stack(r["q"]), np.stack(r["v"]), np.stack(r["f"]),
+                {k: np.asarray(getattr(mpc, k)) for k in PLAN})
 
-    tm, tmh, tid = ex.setup(T, device="cpu", dtype=torch.float64, **MPC_OVERRIDES)
     r = ex.run(tm, tmh, tid, n_steps=TICKS, log_every=0, gait=gait)
-    runs = dict(j=jax_run(jm, jmh), t=(np.stack(r["q"]), np.stack(r["v"])))
+    runs = dict(j=jax_run(jm, jmh), t=(np.stack(r["q"]), np.stack(r["v"]), np.stack(r["f"]),
+                                        {k: getattr(tm, k).numpy() for k in PLAN}))
     moved = []
 
     def spread():
@@ -136,3 +147,29 @@ def test_talos_closed_loop_matches_jax(closed_loop, tick):
     # the robot stood on its soles and moved under the ID's torques
     assert np.abs(runs["t"][1][tick]).max() > 0
     assert abs(runs["t"][0][tick][2] - runs["t"][0][0][2]) < 0.1
+
+
+def _within(closed_loop, get, what):
+    """The port's `get(run)` within FLOOR of JAX's, or within ten times
+    JAX's own response to the moved start."""
+    runs, spread = closed_loop
+    err = _err(get(runs["t"]), get(runs["j"]))
+    print(f"{what}: port vs JAX {err:.2e}")
+    if err >= FLOOR:
+        sp = _err(get(spread()), get(runs["j"]))
+        print(f"{what}: JAX spread {sp:.2e}")
+        assert err < 10 * sp, (err, sp)
+
+
+@pytest.mark.parametrize("tick", range(TICKS))
+def test_talos_closed_loop_forces_match_jax(closed_loop, tick):
+    """The simulator's world contact forces at each tick's last inner step."""
+    _within(closed_loop, lambda run: run[2][tick], f"tick {tick} f")
+    assert closed_loop[0]["t"][2][tick][:, 2].sum() > 0  # the soles bear the robot
+
+
+@pytest.mark.parametrize("field", PLAN)
+def test_talos_closed_loop_plans_match_jax(closed_loop, field):
+    """The two MPCs' plans after the run: the MPC stays in step through the
+    loop, not only the robot it drives."""
+    _within(closed_loop, lambda run: run[3][field], field)

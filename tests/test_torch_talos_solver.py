@@ -7,7 +7,7 @@ kinodynamics (23 joints, two 6D quad feet), T=6, f64 CPU.
     scaled to the horizon (2 double / 4 left / 2 double / 4 right support
     stages, T_fly 4, T_contact 2, apex 0.1 m, walking at 0.1 m/s), each fed
     the JAX plan's next state; the takeoff/land queues must agree exactly.
-Tolerance (the rule of tests/test_torch_latency_jax.py): max(1e-9, ten
+Tolerance (the rule of the latency tick in tests/test_torch_fused_jax.py): max(1e-9, ten
 times the reference's own spread), relative to max(1, largest entry); the
 spread is how far the JAX result moves when its warm start xs is
 multiplied by (1 + 1e-15 noise).  At mu = 1.5e-8 (the MPC's mu_init at its
@@ -27,6 +27,10 @@ import copy
 import numpy as np
 import pytest
 import torch
+
+# one intra-op thread a test process: the suite runs six at once, and idle
+# torch threads spinning beside the others' work slow every worker down
+torch.set_num_threads(1)
 
 T = 6
 TICKS = 2
