@@ -3559,7 +3559,8 @@ LOCKED_SASS = {
     "sim_wide.cu": "0963c9b772d7770dcb4ab1a5383f3ce1f23e46fd5d1ce038d9e8717d4e11b730",
     "linesearch.cu": "bc760b65a04d0c3fbcae61133a55a6fdd527d77c5e6d5f5837b247a31b886a12",
     "linesearch_wide.cu": "a93c8493ecdcf4628546efb28f593c2a79bf0f555198fd2e384b149aeb8fe0fd",
-    "riccati.cu": "f5092e863726944c33f7b7329aac41d583ab85fb15bd4c99105b1ea8d1c67eca",
+    # re-taken after K3's redesign (its outputs bitwise the old unit's)
+    "riccati.cu": "31d9dd7ceb546b15d247c3be34310b3003e682e567ffd63f357e6b58a704f760",
     "rollout.cu": "d0d6ab6cd30522454a249da8be064f0def106b00a7bc7fa3c0132966e2156673",
     "parallel_riccati.cu": "50b440eee30e6438f62f897653eba2bbb803861ac936a68e1d2acd84a7baf6ca",
     "qp.cu": "f682ff83427a68e16ce61f30370a413b3441d11f1d36dad4d472052cad9bdd63",
@@ -4144,12 +4145,277 @@ def drive_main_path(device):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# K3 at every width it serves (csrc/riccati.cu)
+# ---------------------------------------------------------------------------
+
+# (name, nx, nu, T): Go2 kinodynamics, Go2 full dynamics, Talos
+# kinodynamics, Talos full dynamics, Talos centroidal
+RICCATI_WIDTHS = (("go2", 36, 24, T), ("go2_fd", 36, 12, 50), ("talos", 56, 34, T),
+                  ("talos_fd", 56, 22, T), ("centroidal", 9, 12, T))
+# widths no formulation has, checked and not timed, one for each kernel
+# instance the five above leave out: the tiled kernel at nu=28 (its 32-wide
+# factorization); the staged kernel at nu=48 (wider than the tiled one
+# takes), and at nx=65, nu=28, where the tiled plan exceeds the H100's
+# shared memory in f64 (the staged one fits) and takes the tiled kernel in f32
+RICCATI_EXTRA_WIDTHS = (("nu28", 36, 28, 20), ("nu48", 36, 48, 20), ("nx65", 65, 28, 20))
+
+
+def riccati_case(device, nx, nu, nT, nb, seed=0):
+    """K3's inputs at one width: `testing.random_lq` made in f32 (its f64
+    twin is the exact upcast, so one f64 twin serves both precisions'
+    gates), every odd scenario with its last four controls unweighted as a
+    swing foot's forces (zero rows and columns of Quu, zero rows of Qux and
+    qu, zero columns of B: the Jacobi scale falls to sqrt(eps) there).
+    Returns {dtype: (lin, Vx, Vxx)}."""
+    from simple_mpc_tpu_torch.testing import random_lq
+
+    lin, Vx, Vxx, _ = random_lq(nb, nT, nx, nu, torch.float32, device, seed=seed)
+    z, odd = slice(nu - 4, nu), slice(1, None, 2)
+    lin["Quu"][odd, :, z, :] = 0
+    lin["Quu"][odd, :, :, z] = 0
+    lin["Qux"][odd, :, z, :] = 0
+    lin["qu"][odd, :, z] = 0
+    lin["B"][odd, :, :, z] = 0
+    return {dt: ({k: v.to(dt) for k, v in lin.items()}, Vx.to(dt), Vxx.to(dt))
+            for dt in (torch.float32, torch.float64)}
+
+
+def riccati_ptxas(log):
+    """{"f32_nb24": {"registers", "stack_bytes"}, ...} of K3's instances (one
+    a scalar type and factorization width, riccati.cu `riccati_nb`; "staged":
+    the staged kernel) from nvcc's -Xptxas -v log."""
+    import re
+
+    out, cur = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(r"riccati_backward_kernelI([fd])Li(\d+)E", ln)
+            cur = None if m is None else (
+                f"{'f32' if m.group(1) == 'f' else 'f64'}_"
+                + (f"nb{m.group(2)}" if m.group(2) != "0" else "staged"))
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            stack = (int(ln.split("bytes cumulative stack")[0].split()[-1])
+                     if "cumulative stack" in ln else 0)
+            out[cur] = dict(registers=int(ln.split("Used")[1].split()[0]), stack_bytes=stack)
+            cur = None
+    return out
+
+
+def riccati_check(name, data, twin, rows, key, reg):
+    """K3 on rows of riccati_case's data against the f64 twin's rows, in
+    both precisions: f64 within 1e-10 (rel_err on ks, Ks and Qus), f32 within
+    ten times the f32 twin's own distance from the f64 twin.  Returns
+    {dtype: (args, outputs, errors)}."""
+    from simple_mpc_tpu_torch import kernels
+
+    res = {}
+    for dt in (torch.float32, torch.float64):
+        dname = str(dt).replace("torch.", "")
+        lin, Vx, Vxx = data[dt]
+        args = ({k: v[rows].contiguous() for k, v in lin.items()}, Vx[rows].contiguous(),
+                Vxx[rows].contiguous())
+        got = kernels._riccati_cuda(*args, reg)
+        check(all(torch.isfinite(a).all() for a in got), f"K3 {name} {key} {dname}: non-finite")
+        err = max(rel_err(a, b[rows]) for a, b in zip(got, twin[torch.float64]))
+        if dt == torch.float64:
+            check(err <= 1e-10, f"K3 {name} {key} f64: {err:.3e} > 1e-10")
+            res[dname] = (args, got, dict(rel_err=err))
+        else:
+            d = max(rel_err(a[rows], b[rows]) for a, b in zip(twin[dt], twin[torch.float64]))
+            check(err <= 10 * d, f"K3 {name} {key} f32: {err:.3e} > 10 x {d:.3e}")
+            res[dname] = (args, got, dict(kernel_vs_f64=err, twin_vs_f64=d))
+    return res
+
+
+def phase_riccati_kernels(device, ptxas_log="", digest=False):
+    """K3 (`riccati_backward`, csrc/riccati.cu) against its twin at the five
+    widths it serves (RICCATI_WIDTHS, riccati_case) at B=128 and at B=1
+    (scenario 0, and scenario 1 with the unweighted controls, against the
+    B=128 twin's rows; the twins run on the host), and at
+    RICCATI_EXTRA_WIDTHS, untimed; gates in riccati_check.  Prints each
+    width's CUDA-event medians at B=128 and B=1 in both precisions,
+    microseconds a stage, the roofline bound (riccati_flops, inputs and
+    outputs moved once), the kernel it takes and that kernel's shared memory
+    a block (kernels.riccati_route, kernels.riccati_smem), registers and
+    stack from the ptxas log; with `digest`, riccati.cu's SASS digest
+    (sass_digests) beside LOCKED_SASS's."""
+    from simple_mpc_tpu_torch import kernels
+
+    sass = (sass_start(os.path.join(ROOT, "simple_mpc_tpu_torch", "csrc"), ("riccati.cu",),
+                       os.path.join(ROOT, "simple_mpc_tpu_torch", "_build", "sass_riccati"))
+            if digest else None)
+    optin = kernels.smem_optin(device)
+    reg = 1e-9
+    out = {}
+    for name, nx, nu, nT in RICCATI_WIDTHS + RICCATI_EXTRA_WIDTHS:
+        t0 = time.perf_counter()
+        timed = (name, nx, nu, nT) in RICCATI_WIDTHS
+        nb = B if timed else 8
+        data = riccati_case(device, nx, nu, nT, nb)
+        # the twins on the host: their unrolled Cholesky is thousands of
+        # elementwise ops a stage, launch-bound on the card
+        twin = {dt: kernels.riccati_backward_plain(
+            {k: v.cpu() for k, v in lin.items()}, Vx.cpu(), Vxx.cpu(), reg)
+            for dt, (lin, Vx, Vxx) in data.items()}
+        line = {}
+        for n, rows in ((nb, slice(None)), (1, slice(0, 1)), (1, slice(1, 2))):
+            key = f"B{n}" if n == nb else f"B1_scenario{rows.start}"
+            for dname, (args, got, res) in riccati_check(name, data, twin, rows, key,
+                                                         reg).items():
+                if timed and rows.start != 1:
+                    ms = cuda_ms(lambda a=args: kernels._riccati_cuda(*a, reg), REPS)
+                    res.update(ms=ms, us_a_stage=1e3 * ms / nT,
+                               bound=roofline(riccati_flops(n, nT, nx, nu),
+                                              nbytes((args, got))))
+                line.setdefault(dname, {})[key] = res
+        for dt in (torch.float32, torch.float64):
+            route = kernels.riccati_route(nx, nu, dt, optin)
+            line[str(dt).replace("torch.", "")].update(
+                kernel=route, smem_bytes=kernels.riccati_smem(nx, nu, dt)[route])
+        out[name] = line
+        phase(f"riccati_kernels_{name}", t0, T=nT, nx=nx, nu=nu, smem_optin_bytes=optin, **line)
+    t0 = time.perf_counter()
+    extra = {}
+    if sass is not None:
+        digests, release = sass_digests(sass)
+        extra = dict(nvcc=release, sha256=digests["riccati.cu"],
+                     locked=LOCKED_SASS["riccati.cu"])
+    phase("riccati_kernels_build", t0, ptxas=riccati_ptxas(ptxas_log), **extra)
+    return out
+
+
+def riccati_library(src, name, defines=()):
+    """riccati.cu at `src` built alone (its plain C interface, seconds of
+    nvcc) into _build/<name>/, loaded with its entry points typed."""
+    import ctypes
+
+    from simple_mpc_tpu_torch import kernels
+
+    work = os.path.join(ROOT, "simple_mpc_tpu_torch", "_build", name)
+    os.makedirs(work, exist_ok=True)
+    so = os.path.join(work, f"lib{name}.so")
+    r = subprocess.run([kernels._nvcc(), *kernels.ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                        "-shared", *defines, "-o", so, src], capture_output=True, text=True)
+    check(r.returncode == 0, f"{name} build: {r.stdout}{r.stderr}")
+    lib = ctypes.CDLL(so)
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    for fn in ("smpc_riccati_backward_f32", "smpc_riccati_backward_f64"):
+        getattr(lib, fn).argtypes = [P] * 10 + [D, D, I, I, I, I] + [P] * 4
+    return lib
+
+
+def riccati_caller(lib, device, lin, Vx, Vxx, reg):
+    """A call of `lib`'s K3 on these inputs, into outputs of its own."""
+    from simple_mpc_tpu_torch import kernels
+
+    dt = Vx.dtype
+    dims, ins, res = kernels._backward_args(lin, Vx, Vxx)
+    fn = getattr(lib, f"smpc_riccati_backward_{kernels._suffix(dt)}")
+
+    def call():
+        err = fn(*ins, reg, float(torch.finfo(dt).eps), *dims, *[o.data_ptr() for o in res],
+                 kernels._stream(device))
+        check(err == 0, f"riccati baseline: launch error {err}")
+        return res
+
+    return call
+
+
+def phase_riccati_versus(device):
+    """This tree's K3 against another tree's csrc/riccati.cu (the path in
+    SMPC_RICCATI_BASELINE, built alone) in one process, at the five widths
+    (RICCATI_WIDTHS, riccati_case) and RICCATI_EXTRA_WIDTHS, B=128 and
+    B=1, f32 and f64: whether the outputs are bitwise equal (gated: the
+    redesigned kernel keeps every operation's order), and at the five
+    widths the CUDA-event medians in the order baseline, this, this,
+    baseline, with microseconds a stage and the ratio of the means."""
+    from simple_mpc_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    src = os.environ.get("SMPC_RICCATI_BASELINE")
+    check(src is not None and os.path.isfile(src),
+          "riccati_versus: set SMPC_RICCATI_BASELINE to another tree's csrc/riccati.cu")
+    base = riccati_library(src, "riccati_baseline")
+    reg = 1e-9
+    out = {}
+    for name, nx, nu, nT in RICCATI_WIDTHS + RICCATI_EXTRA_WIDTHS:
+        timed = (name, nx, nu, nT) in RICCATI_WIDTHS
+        nb = B if timed else 8
+        data = riccati_case(device, nx, nu, nT, nb)
+        line = {}
+        for dt in (torch.float32, torch.float64):
+            lin, Vx, Vxx = data[dt]
+            for n, rows in ((nb, slice(None)), (1, slice(0, 1)), (1, slice(1, 2))):
+                args = ({k: v[rows].contiguous() for k, v in lin.items()}, Vx[rows].contiguous(),
+                        Vxx[rows].contiguous())
+                this = lambda a=args: kernels._riccati_cuda(*a, reg)  # noqa: E731
+                that = riccati_caller(base, device, *args, reg)
+                same = all(torch.equal(a, b) for a, b in zip(this(), that()))
+                key = f"{kernels._suffix(dt)}_" + (f"B{n}" if n == nb else f"B1_scenario{rows.start}")
+                check(same, f"riccati_versus {name} {key}: outputs differ from the baseline's")
+                res = dict(bitwise=same)
+                if timed and rows.start != 1:
+                    b1, t1, t2, b2 = (cuda_ms(f, REPS) for f in (that, this, this, that))
+                    res.update(baseline_ms=[b1, b2], ms=[t1, t2],
+                               us_a_stage=500 * (t1 + t2) / nT,
+                               baseline_us_a_stage=500 * (b1 + b2) / nT,
+                               speedup=(b1 + b2) / (t1 + t2))
+                line[key] = res
+        out[name] = line
+    phase("riccati_versus", t0, baseline=os.path.relpath(src, ROOT), **out)
+    return out
+
+
+# K3's profiling marks (csrc/riccati.cu SMPC_MARK(n)), each the cycles of
+# thread 0 (marks 0-12) or thread 32 (13-15) of block 0 since that thread's
+# mark before it, summed over the stages
+RICCATI_MARKS = {0: "G: Vxx, Vx and the wait at the stage's top", 1: "A: VAB",
+                 2: "B: Q's control rows",
+                 12: "B': the Jacobi scale, scaled Quu and right-hand sides",
+                 10: "C: warp 0's factor", 13: "C: thread 32's load of its right-hand side",
+                 14: "C: thread 32's forward solve, behind the factor",
+                 15: "C: thread 32's back solve",
+                 3: "C: the rest of phase C after warp 0's factor (the solves)",
+                 4: "D: sol = x / dscale and the gains out", 5: "E: Quu sol",
+                 6: "F: Qux' sol, sol' Quu sol"}
+
+
+def phase_riccati_phases(device):
+    """Where a K3 stage's time goes: csrc/riccati.cu built alone with
+    -DSMPC_RICCATI_PROF (its clock64() marks), run at B=1 on riccati_case's
+    scenario 0 at the five widths in both precisions; cycles a stage for
+    each mark (RICCATI_MARKS) and the CUDA-event time."""
+    import ctypes
+
+    from simple_mpc_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    lib = riccati_library(os.path.join(ROOT, "simple_mpc_tpu_torch", "csrc", "riccati.cu"),
+                          "riccati_phases", ("-DSMPC_RICCATI_PROF",))
+    lib.smpc_riccati_marks.argtypes = [ctypes.c_void_p]
+    out = {}
+    for name, nx, nu, nT in RICCATI_WIDTHS:
+        data = riccati_case(device, nx, nu, nT, 2)
+        for dt in (torch.float32, torch.float64):
+            lin, Vx, Vxx = data[dt]
+            call = riccati_caller(lib, device, {k: v[:1].contiguous() for k, v in lin.items()},
+                                  Vx[:1].contiguous(), Vxx[:1].contiguous(), 1e-9)
+            ms = cuda_ms(call, REPS)
+            marks = (ctypes.c_longlong * 16)()
+            check(lib.smpc_riccati_marks(marks) == 0, "riccati_phases: cudaMemcpyFromSymbol")
+            out[f"{name}_{kernels._suffix(dt)}"] = dict(
+                ms=ms, cycles_a_stage={v: round(marks[q] / nT) for q, v in RICCATI_MARKS.items()})
+    phase("riccati_phases", t0, B=1, **out)
+    return out
+
+
 PHASES = ("kernels", "fd_kernels", "id_sim_kernels", "fixture", "talos_kernels",
           "talos_fixture", "talos_id_sim_kernels", "talos_closed_loop", "line_search_kernels",
           "tick_traces", "talos_tick_kernels", "k6_wide_kernels", "talos_fused", "fd_fused",
           "talos_fd_kernels", "talos_fd_batched", "talos_fd_mpc", "talos_fd_closed_loop",
           "talos_centroidal_kernels", "talos_centroidal_batched", "talos_centroidal_mpc",
-          "talos_centroidal_closed_loop")
+          "talos_centroidal_closed_loop", "riccati_kernels", "riccati_phases", "riccati_versus")
 
 
 def main():
@@ -4212,7 +4478,9 @@ def main():
                     talos_centroidal_closed_loop=lambda d: (
                         phase_talos_centroidal_closed_loop(d, *cent_loop_setup(d)),
                         phase_talos_centroidal_swing(d, *cent_loop_setup(d)),
-                        phase_talos_centroidal_loop_reading(d)))
+                        phase_talos_centroidal_loop_reading(d)),
+                    riccati_kernels=lambda d: phase_riccati_kernels(d, info["log"], digest=True),
+                    riccati_phases=phase_riccati_phases, riccati_versus=phase_riccati_versus)
         for name in phases:
             runs[name](device)
         print(smi, flush=True)
@@ -4231,6 +4499,7 @@ def main():
     phase_k6_wide_kernels(device)
     fdwres = phase_talos_fd_kernels(device, info["log"])
     centres = phase_talos_centroidal_kernels(device, info["log"], sass_job)
+    phase_riccati_kernels(device, info["log"])
     launches = drive_main_path(device)
     phase_talos_fd_closed_loop(device)
     phase_talos_centroidal_loop_reading(device)

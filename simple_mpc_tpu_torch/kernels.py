@@ -364,8 +364,56 @@ def _backward_args(lin: dict, Vx_T, Vxx_T):
     return (nb, T, nx, nu), [t[k].data_ptr() for k in shapes], out
 
 
+def _r4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def riccati_smem(nx: int, nu: int, dtype) -> dict:
+    """Bytes of dynamic shared memory a block of K3 takes on each of its two
+    kernels (csrc/riccati.cu): "tiled", for nu <= 40 (`riccati_plan`, region
+    by region, each rounded up to 4 elements; None for wider nu), and
+    "staged", for wider nu or a tiled plan over the device's limit
+    (`riccati_staged_elems`)."""
+    size = torch.finfo(dtype).bits // 8
+    nz, nr = nx + nu, nx + 1
+    staged = (nx + nx * nx + max(2 * nx * nz, nr * (nu + 2 * nx)) + nz * nz + nz + nx + nu
+              + nu * nu + nu * nr) * size
+    nl = next((w for w in (16, 24, 32, 40) if nu <= w), 0)  # riccati.cu `riccati_nb`
+    if not nl:
+        return dict(tiled=None, staged=staged)
+
+    def spread(n):  # riccati.cu `spread`
+        ld = _r4(n)
+        while (ld * size) % 128 != 16:
+            ld += 16 // size
+        return ld
+
+    ox = _r4(nx)
+    ldv, ldab, ldq = _r4(nx), _r4(ox + nu + 1), spread(ox + nu + 1)
+    ldsol, ldp, ldl = _r4(nx + 1), _r4(nx + 2), spread(nl)
+    sizes = [max(ox * ldv, nu * ldp, 2 * _r4(nl * ldl)), nx, nx * ldab,
+             max(nx * ldab, ox * (ldsol + ldp)), (ox + _r4(nu)) * ldq, nu * ldsol, nl, nl, 1]
+    return dict(tiled=sum(_r4(s) for s in sizes) * size, staged=staged)
+
+
+def riccati_route(nx: int, nu: int, dtype, limit: int):
+    """The K3 kernel a width takes under `limit` bytes of shared memory a
+    block, as csrc/riccati.cu `launch_riccati` picks it: "tiled" where its
+    plan fits, else "staged" where its plan fits, else None."""
+    smem = riccati_smem(nx, nu, dtype)
+    return next((k for k in ("tiled", "staged") if smem[k] is not None and smem[k] <= limit),
+                None)
+
+
 def _riccati_cuda(lin: dict, Vx_T, Vxx_T, reg: float):
     dtype, device = Vx_T.dtype, Vx_T.device
+    nx, nu = lin["A"].shape[-1], lin["B"].shape[-1]
+    limit = smem_optin(device)
+    if riccati_route(nx, nu, dtype, limit) is None:
+        raise NotImplementedError(
+            f"riccati_backward at nx={nx}, nu={nu} in {dtype} needs "
+            f"{riccati_smem(nx, nu, dtype)['staged']} bytes of shared memory a block; "
+            f"the device allows {limit}")
     dims, inputs, out = _backward_args(lin, Vx_T, Vxx_T)
     fn = getattr(_library(), f"smpc_riccati_backward_{_suffix(dtype)}")
     with torch.cuda.device(device):
